@@ -1,0 +1,725 @@
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``real2sim_eval_tpu_torch/csrc`` (into
+``real2sim_eval_tpu_torch/_build``), holds each kernel against its plain
+PyTorch version on the card, then drives the flagship batched evaluation
+(64 lockstep envs, 130,120 gaussians per env, three 848x480 cameras, 667
+spring-mass substeps per control step) through ``BatchedEvaluator`` and
+reports its timings, a stage breakdown of one step and render, and each
+kernel's time beside its bound at the flagship's shapes. Every line of
+standard output is one JSON object (the first holds the card's
+``nvidia-smi`` name and power limit); the last line is
+``{"ok": true, "device": {...}}``. Any failed phase raises and exits
+non-zero without that line; so does a machine without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+B_FLAGSHIP = 64
+N_TABLE = 99000
+N_OBJ_DENSE = 30000
+TIMED_STEPS = 20
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
+# operations/s outside the tensor cores, for the kernels' least times
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+# f32 operations per (pixel, pair) evaluation of the compositor's blend
+# (offsets, the conic quadratic, exp, the alpha/T tests, one update)
+K1_OPS_PER_EVAL = 20
+# f32 operations of the spring-mass step's inner work items
+K3_OPS = {"spring_slot": 30, "particle": 30, "self_slot": 45,
+          "contact_base": 80, "contact_query": 60}
+RGB_TOL = 2e-3
+# K3 against its plain version, per case: max |x| (m), max |v| (m/s) and
+# the largest gap between the ropes' centres of mass (m). Each gate is a
+# small multiple of the gap measured on an H100 (PERF.md, Findings);
+# the gaps are deterministic (same inputs, no atomics in either version).
+# Each case also reports the plain version's own f32-vs-f64 gap: what
+# rounding alone does to that step (k3_rounding_gap)
+K3_GATES = {
+    # a resting rope: the ground flips a few particles' velocities between
+    # its bounce and rest branches
+    "flagship": {"x": 1e-5, "v": 1e-2, "com": 1e-6},
+    # fingers pressing into the rope: chaotic contact, whose v gap equals
+    # the plain version's own f32-vs-f64 gap
+    "grasp": {"x": 2e-4, "v": 5e-1, "com": 1e-5},
+    # stretched loop in the air, its ends colliding: springs + phase B
+    "loop": {"x": 1e-6, "v": 5e-4, "com": 1e-8},
+}
+# the loop's control step is cut to its first substeps: its ends' collision
+# is chaotic, and by 40 substeps rounding alone flips a hit in the plain
+# version (PERF.md, Findings)
+K3_LOOP_SUBSTEPS = 20
+# the broken kernels each case's gates must reject (k3_mutants)
+K3_MUST_CATCH = {"flagship": ("no_op", "no_springs"),
+                 "grasp": ("no_op", "no_springs"),
+                 "loop": ("no_op", "no_springs", "no_self_collision")}
+DEVICE = "cuda"
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def flips_limit(n_pixels: int) -> int:
+    """Median depth is discontinuous in alpha (the T = 0.5 crossing): a
+    few pixels may flip between a depth and the 15.0 default."""
+    return max(5, int(2e-4 * n_pixels))
+
+
+def depth_flips(a, b) -> int:
+    return int(((a - b).abs() > 1e-2).sum())
+
+
+def time_cuda(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+    import torch
+
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def time_host(fn) -> float:
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def patch(obj, name: str, make):
+    """Replace ``obj.name`` by ``make(original)``; returns the undo."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    return lambda: setattr(obj, name, orig)
+
+
+def capture(module, name: str):
+    """Wrap ``module.name`` so the next call records its arguments."""
+    seen = {}
+
+    def make(orig):
+        def wrapper(*args, **kwargs):
+            seen.setdefault("args", args)
+            return orig(*args, **kwargs)
+        return wrapper
+
+    return seen, patch(module, name, make)
+
+
+# ---------------------------------------------------------------------------
+# kernel checks
+# ---------------------------------------------------------------------------
+
+
+def composite_both(pairs, starts, ends, n_tx, n_ty, chunk_inst=16):
+    """K1 and its plain version on the same inputs; the plain version runs
+    over instance chunks to bound its (tiles, 8, 128) working set."""
+    import torch
+
+    from real2sim_eval_tpu_torch.renderer.tile_kernel import (
+        composite_tiles_plain, rasterize_tiles_batch)
+
+    rgb_k, dep_k = rasterize_tiles_batch(pairs, starts, ends, n_tx, n_ty)
+    parts = []
+    t_plain = 0.0
+    for i in range(0, starts.shape[0], chunk_inst):
+        ms, out = time_host(lambda i=i: composite_tiles_plain(
+            pairs, starts[i:i + chunk_inst], ends[i:i + chunk_inst], n_tx,
+            n_ty))
+        t_plain += ms
+        parts.append(out)
+    rgb_p = torch.cat([p[0] for p in parts])
+    dep_p = torch.cat([p[1] for p in parts])
+    return rgb_k, dep_k, rgb_p, dep_p, t_plain
+
+
+def pixel_pair_walks(pairs, starts, ends, n_tx: int, chunk_inst=16) -> int:
+    """Sum over pixels of the pairs each pixel blends before it is done,
+    the pair that finishes it included: the compositor's work on this
+    input, whatever order a kernel does it in. Same tests as
+    ``tile_kernel.composite_tiles_plain``."""
+    import torch
+
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    dev = pairs.device
+    n_tiles = starts.shape[1]
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(0, starts.shape[0], chunk_inst):
+        s = starts[i:i + chunk_inst].reshape(-1).long()
+        e = ends[i:i + chunk_inst].reshape(-1).long()
+        t = torch.arange(s.shape[0], device=dev) % n_tiles
+        px = (((t % n_tx) * tk.TILE_W)[:, None, None]
+              + torch.arange(tk.TILE_W, device=dev)[None, None, :]).float()
+        py = (((t // n_tx) * tk.TILE_H)[:, None, None]
+              + torch.arange(tk.TILE_H, device=dev)[None, :, None]).float()
+        T = torch.ones((s.shape[0], tk.TILE_H, tk.TILE_W), device=dev)
+        done = torch.zeros_like(T, dtype=torch.bool)
+        for j in range(int((e - s).max()) if s.numel() else 0):
+            in_range = (s + j < e)[:, None, None]
+            live = in_range & ~done
+            total += live.sum()
+            if j % 32 == 31 and not bool(live.any()):
+                break
+            a = pairs[:, torch.where(s + j < e, s + j, 0)][:, :, None, None]
+            dx, dy = a[0] - px, a[1] - py
+            power = -0.5 * (a[2] * dx * dx + a[4] * dy * dy) - a[3] * dx * dy
+            alpha = torch.clamp(a[5] * torch.exp(power), max=tk.ALPHA_MAX)
+            ok = in_range & (power <= 0.0) & (alpha >= tk.ALPHA_MIN)
+            test_T = T * (1.0 - alpha)
+            finish = ok & (test_T < tk.T_EPS)
+            T = torch.where(ok & ~finish & ~done, test_T, T)
+            done = done | finish
+    return int(total)
+
+
+def k1_bound_ms(pairs, starts, rgb, walks: int) -> tuple[float, str]:
+    n_bytes = (pairs.numel() * 4 + 2 * starts.numel() * 4
+               + rgb.numel() * 4 * 4 // 3)
+    n_ops = float(walks) * K1_OPS_PER_EVAL
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k3_bound_ms(opts, tab, state) -> tuple[float, str]:
+    B, N, _ = state.x.shape
+    S = opts.num_substeps
+    active_slots = int((tab.nbr_k != 0).sum())           # shared table
+    per_step = B * (active_slots * K3_OPS["spring_slot"]
+                    + N * K3_OPS["particle"])
+    if tab.sc_ok is not None:
+        per_step += int(tab.sc_ok.sum()) * K3_OPS["self_slot"]
+    n_bytes = state.x.numel() * 4 * 4 + tab.nbr_k.numel() * 16
+    if tab.cand_ok is not None:
+        C = tab.pose.shape[2]
+        per_step += int(tab.cand_ok.sum()) * (K3_OPS["contact_base"]
+                                              + C * K3_OPS["contact_query"])
+        n_bytes += tab.pose.numel() * 4 + tab.combo["corners"].numel() * 4
+    t_ops = per_step * S / PEAK_F32_OPS_S
+    t_bytes = n_bytes / PEAK_BYTES_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_k1_small():
+    """K1 vs its plain version on one 848x480 instance of a 20k-gaussian
+    scene (flagship layout, cut to 20,000 gaussians)."""
+    import torch
+
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.renderer.binning import bin_gaussians
+    from real2sim_eval_tpu_torch.renderer.preprocess import \
+        preprocess_gaussians
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+
+    a = make_flagship_assets(batch=1, n_table=15000, n_obj_dense=3880,
+                             device=DEVICE)
+    ev = BatchedEvaluator(a, [0], device=DEVICE)
+    scenes, _ = ev.compose(ev.state, dc_only=True)
+    cam, w2c = ev._fixed_cams[0]
+    pre = preprocess_gaussians(cam, torch.as_tensor(w2c, device=DEVICE)[None],
+                               scenes["means3D"], scenes["scales"],
+                               scenes["rotations"], scenes["opacities"],
+                               scenes["shs"], 0)
+    n_tx, n_ty = -(-cam.width // 128), -(-cam.height // 8)
+    bins = bin_gaussians(pre, n_tx, n_ty, 128, 8)
+    rgb_k, dep_k, rgb_p, dep_p, _ = composite_both(
+        bins["pair_attrs"], bins["tile_starts"], bins["tile_ends"], n_tx, n_ty)
+    err = float((rgb_k - rgb_p).abs().max())
+    flips = depth_flips(dep_k, dep_p)
+    out = {"phase": "k1_check", "gaussians": int(scenes["means3D"].shape[1]),
+           "pairs": int(bins["pair_attrs"].shape[1]), "max_abs_rgb": err,
+           "depth_flips": flips, "rgb_tol": RGB_TOL,
+           "flips_limit": flips_limit(dep_k.numel())}
+    emit(out)
+    if err > RGB_TOL or flips > out["flips_limit"]:
+        fail(f"K1 disagrees with its plain version: {out}")
+
+
+def k3_mutants(opts, tab, state, plain) -> dict:
+    """Max |x| from the plain version of three broken kernels: one that
+    returns its input, one without springs and dashpots, one without the
+    self-collision phase (each computed as the plain version would be)."""
+    import torch
+
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+
+    def gap(s):
+        return float((s.x - plain.x).abs().max())
+
+    zero = torch.zeros_like(tab.nbr_k)
+    out = {"no_op": gap(state),
+           "no_springs": gap(sm.run_substeps_plain(opts, dataclasses.replace(
+               tab, nbr_k=zero, nbr_c=zero), state))}
+    if tab.sc_sel is not None:
+        out["no_self_collision"] = gap(sm.run_substeps_plain(
+            opts, dataclasses.replace(tab, sc_sel=None, sc_idx=None,
+                                      sc_ok=None, sc_invm=None,
+                                      sc_msel=None), state))
+    return out
+
+
+def k3_rounding_gap(opts, tab, state, plain) -> dict:
+    """Max |x| and |v| between the plain version in f32 and in f64 on the
+    same inputs: how far rounding alone moves this case (a contact-heavy
+    step is chaotic, and a kernel may be as far from the plain version)."""
+    import torch
+
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+
+    def f64(t):
+        if isinstance(t, dict):
+            return {k: f64(v) for k, v in t.items()}
+        if isinstance(t, torch.Tensor) and t.dtype == torch.float32:
+            return t.double()
+        return t
+
+    tab64 = dataclasses.replace(tab, **{
+        f.name: f64(getattr(tab, f.name)) for f in dataclasses.fields(tab)})
+    st64 = dataclasses.replace(state, x=f64(state.x), v=f64(state.v),
+                               finger_forces=f64(state.finger_forces))
+    p64 = sm.run_substeps_plain(opts, tab64, st64)
+    return {"x": float((plain.x - p64.x).abs().max()),
+            "v": float((plain.v - p64.v).abs().max())}
+
+
+def check_k3(case: str, opts, tab, state, **extra) -> dict:
+    """K3 against its plain version on one control step: the gaps, the
+    work the case exercises, and the gaps of the broken kernels the gates
+    must reject. Fails on a gap over its gate or a mutant under it."""
+    import torch
+
+    from real2sim_eval_tpu_torch.physics import fused_step
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+
+    kern = fused_step.spring_mass_step(opts, tab, state)
+    plain = sm.run_substeps_plain(opts, tab, state)
+    gates = K3_GATES[case]
+    gaps = {"x": float((kern.x - plain.x).abs().max()),
+            "v": float((kern.v - plain.v).abs().max()),
+            "com": float((kern.x.mean(1) - plain.x.mean(1)).norm(dim=-1)
+                         .max())}
+    mutants = k3_mutants(opts, tab, state, plain)
+    ff_k = kern.finger_forces.norm(dim=-1)
+    ff_p = plain.finger_forces.norm(dim=-1)
+    out = {"phase": "k3_check", "case": case, "envs": int(state.x.shape[0]),
+           "particles": int(state.x.shape[1]),
+           "substeps": opts.num_substeps,
+           "active_spring_slots": int((tab.nbr_k != 0).sum()),
+           "self_slots_valid": (int(tab.sc_ok.sum())
+                                if tab.sc_ok is not None else 0),
+           "contact_candidates_in_reach": (int(tab.cand_ok.sum())
+                                           if tab.cand_ok is not None else 0),
+           "max_abs": gaps, "gates": gates,
+           "plain_f32_vs_f64": k3_rounding_gap(opts, tab, state, plain),
+           "mutant_max_abs_x": mutants,
+           "finger_force_envs": [int((ff_k > 0).any(-1).sum()),
+                                 int((ff_p > 0).any(-1).sum())],
+           "telemetry": tab.telemetry.sum(0).tolist(),
+           "finite": bool(torch.isfinite(kern.x).all()
+                          and torch.isfinite(kern.v).all()),
+           "min_z": float(kern.x[..., 2].min()), **extra}
+    emit(out)
+    over = [k for k in gates if gaps[k] > gates[k]]
+    missed = [m for m in K3_MUST_CATCH[case] if mutants[m] <= gates["x"]]
+    if over or missed or not out["finite"] or out["min_z"] < -0.01:
+        fail(f"K3 {case}: gaps over their gates {over}, broken kernels "
+             f"passing {missed}: {out}")
+    return out
+
+
+def check_k3_grasp():
+    """8 flagship ropes, each gripped mid-rope: the fingers straddle the
+    rope, half closed (openness 0.4) and pressing into it, while the eef
+    moves down 2 mm. The finger-contact branch (relative surface velocity,
+    the second finger query, finger forces) runs on every substep; both
+    versions must see finger contact on the last substep in every env."""
+    import torch
+
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+
+    B, openness = 8, 0.4
+    a = make_flagship_assets(batch=B, n_table=1000, n_obj_dense=0,
+                             device=DEVICE)
+    ev = BatchedEvaluator(a, list(range(B)), device=DEVICE)
+    g = ev.state.grippers.clone()
+    # the finger pads reach 0.14 m below the eef: put their lower end 1 cm
+    # under a particle 3/8 along the rope
+    x = ev.state.sm.x
+    g[:, :3] = x[:, x.shape[1] * 3 // 8] + torch.tensor([0.0, 0.0, 0.13],
+                                                        device=DEVICE)
+    g[:, 13] = openness
+    grasp = ev.state.grasp
+    st = ev.state.replace(grippers=g, grasp=dataclasses.replace(
+        grasp,
+        current_openness=torch.full_like(grasp.current_openness, openness),
+        initialized=torch.ones_like(grasp.initialized)))
+    rot = torch.tensor(np.diag([1.0, -1.0, -1.0]).reshape(-1),
+                       dtype=torch.float32, device=DEVICE)
+    act = torch.cat([g[:, :3] - torch.tensor([0.0, 0.0, 0.002], device=DEVICE),
+                     rot.expand(B, 9), torch.full((B, 1), openness,
+                                                  device=DEVICE)], dim=1)
+    ctrl, _, _, colliders = ev._env_pre(st, act)
+    tab = sm.freeze(a.params, a.opts, colliders, st.sm, ctrl, st.rest_x)
+    out = check_k3("grasp", a.opts, tab, st.sm)
+    if out["finger_force_envs"] != [B, B]:
+        fail(f"K3 grasp: finger contact missing in some env: {out}")
+
+
+def k3_loop_case(substeps: int, B: int = 8):
+    """8 flagship ropes wound into a loop in the air, 2 % over their rest
+    length, whose two ends overlap 3 cm apart by 3 mm and close on each
+    other at 0.3 m/s: every spring is stretched and the self-collision
+    slots of the overlap are live, with no ground or collider contact.
+    Returns (opts, tables, state, spring strain stats) for a control step
+    of ``substeps`` substeps."""
+    import torch
+
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+
+    a = make_flagship_assets(batch=B, n_table=1000, n_obj_dense=0,
+                             device=DEVICE)
+    opts = dataclasses.replace(a.opts, num_substeps=substeps)
+    ev = BatchedEvaluator(dataclasses.replace(a, opts=opts), list(range(B)),
+                          device=DEVICE)
+    # the rest rope in its own frame: arclength u along it, offsets y, z
+    rest = a.params.rest_x.double()
+    ax = rest[-1] - rest[0]
+    ax = ax / ax.norm()
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=rest.dtype, device=DEVICE)
+    side = torch.linalg.cross(up, ax)
+    side = side / side.norm()
+    d = rest - rest[0]
+    u, y, z = d @ ax, d @ side, d @ up
+    length = float(u.max() - u.min())
+    stretch, overlap, pitch = 1.02, 0.03, 0.003
+    radius = (stretch * length - overlap) / (2 * np.pi)
+    theta = stretch * (u - u.min()) / radius
+    loop = torch.stack([0.25 + (radius + y) * torch.cos(theta),
+                        (radius + y) * torch.sin(theta),
+                        0.08 + pitch * theta / (2 * np.pi) + z], -1)
+    vz = 0.3 * (0.5 - (u - u.min()) / length)
+    vel = torch.stack([torch.zeros_like(vz), torch.zeros_like(vz), vz], -1)
+    st = ev.state.replace(sm=dataclasses.replace(
+        ev.state.sm, x=loop.float().expand(B, -1, -1).contiguous(),
+        v=vel.float().expand(B, -1, -1).contiguous()))
+    rot = torch.tensor(np.diag([1.0, -1.0, -1.0]).reshape(-1),
+                       dtype=torch.float32, device=DEVICE)
+    act = torch.cat([st.grippers[:, :3], rot.expand(B, 9),
+                     torch.ones((B, 1), device=DEVICE)], dim=1)
+    ctrl, _, _, colliders = ev._env_pre(st, act)
+    tab = sm.freeze(a.params, opts, colliders, st.sm, ctrl, st.rest_x)
+    cur = (st.sm.x[0][a.params.nbr_idx.long()] - st.sm.x[0][:, None]).norm(
+        dim=-1)
+    strain = (cur / a.params.nbr_rest - 1.0)[tab.nbr_k != 0]
+    return opts, tab, st.sm, {
+        "spring_strain_mean": float(strain.mean()),
+        "spring_strain_max_abs": float(strain.abs().max())}
+
+
+def check_k3_loop():
+    opts, tab, state, extra = k3_loop_case(K3_LOOP_SUBSTEPS)
+    check_k3("loop", opts, tab, state, **extra)
+
+
+def check_reference():
+    """The tile pipeline (K1) against the dense reference compositor on a
+    small random scene, on the card."""
+    import torch
+
+    from real2sim_eval_tpu_torch.renderer import Camera, RasterConfig, rasterize
+
+    rng = np.random.default_rng(0)
+    n = 300
+    q = rng.normal(size=(n, 4))
+    args = [torch.as_tensor(v, dtype=torch.float32, device=DEVICE) for v in (
+        np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.4, 0.4, n),
+                  rng.uniform(0.5, 3.0, n)], -1),
+        rng.uniform(0.01, 0.08, (n, 3)), q / np.linalg.norm(q, axis=-1,
+                                                            keepdims=True),
+        rng.uniform(0.1, 1.0, n), rng.uniform(-0.5, 0.5, (n, 1, 3)))]
+    cam = Camera(width=256, height=64, fx=80.0, fy=80.0, cx=128.0, cy=32.0)
+    eye = torch.eye(4, device=DEVICE)
+    rgb_k, dep_k = rasterize(cam, eye, *args, 0, device=DEVICE)
+    rgb_r, dep_r = rasterize(cam, eye, *args, 0, device=DEVICE,
+                             config=RasterConfig(backend="reference"))
+    err = float((rgb_k - rgb_r).abs().max())
+    flips = depth_flips(dep_k, dep_r)
+    emit({"phase": "reference_check", "gaussians": n, "max_abs_rgb": err,
+          "depth_flips": flips})
+    if err > RGB_TOL or flips > flips_limit(dep_k.numel()):
+        fail("tile pipeline disagrees with the dense reference")
+
+
+# ---------------------------------------------------------------------------
+# the flagship main path
+# ---------------------------------------------------------------------------
+
+
+def run_flagship():
+    import torch
+
+    from real2sim_eval_tpu_torch import ext
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+
+    t0 = time.perf_counter()
+    a = make_flagship_assets(batch=B_FLAGSHIP, n_table=N_TABLE,
+                             n_obj_dense=N_OBJ_DENSE, device=DEVICE)
+    ev = BatchedEvaluator(a, list(range(B_FLAGSHIP)), device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    rot = np.diag([1.0, -1.0, -1.0]).reshape(-1)
+    actions = torch.tensor(
+        np.tile(np.concatenate([[0.2, 0.0, 0.3], rot, [1.0]]),
+                (B_FLAGSHIP, 1)), dtype=torch.float32, device=DEVICE)
+    n_gauss = int(ev.compose_scenes()["means3D"].shape[1])
+
+    ev.step(actions)                      # warm-up: allocator, first calls
+    ev.render()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ext.reset_launch_counts()
+    phys, rend = [], []
+    for _ in range(TIMED_STEPS):
+        ms, _ = time_host(lambda: ev.step(actions))
+        phys.append(ms)
+        ms, frames = time_host(ev.render)
+        rend.append(ms)
+    launches = dict(ext.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    ims, depths, wims, wdepths = frames
+    drops = ev.render_drops()
+    tele = {k: int(np.sum(v)) for k, v in ev.telemetry().items()}
+    finite = bool(torch.isfinite(ims).all() and torch.isfinite(wims).all()
+                  and torch.isfinite(depths).all()
+                  and torch.isfinite(ev.state.sm.x).all())
+    shapes_ok = (tuple(ims.shape) == (B_FLAGSHIP, 2, 3, 480, 848)
+                 and tuple(wims.shape) == (B_FLAGSHIP, 1, 3, 480, 848))
+    total = float(np.mean(phys) + np.mean(rend))
+    out = {"phase": "flagship", "envs": B_FLAGSHIP, "gaussians_per_env": n_gauss,
+           "cameras": "2 fixed + 1 wrist, 848x480",
+           "substeps": a.opts.num_substeps, "timed_steps": TIMED_STEPS,
+           "setup_s": setup_s,
+           "physics_ms": float(np.mean(phys)), "render_ms": float(np.mean(rend)),
+           "total_ms": total, "env_steps_per_s": B_FLAGSHIP / (total / 1e3),
+           "physics_ms_each": phys, "render_ms_each": rend,
+           "max_memory_allocated_bytes": int(peak),
+           "render_drops": drops, "physics_telemetry": tele,
+           "frames_finite": finite, "frame_shapes_ok": shapes_ok,
+           "frame_mean": float(ims.mean()), "launches": launches}
+    emit(out)
+    if sum(drops.values()) or any(tele[k] for k in (
+            "self_candidates_dropped", "self_particles_dropped",
+            "contact_particles_dropped")):
+        fail(f"budget saturation: {drops} {tele}")
+    if not (finite and shapes_ok):
+        fail("flagship frames are not finite or misshapen")
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"the main path never launched {name}")
+    return ev, actions, launches, out
+
+
+def stage_breakdown(ev, actions, total_ms: float):
+    """Where a flagship control step and render spend their time.
+
+    One more step and render with a synchronising host timer around each
+    stage (nested stages count inside their parents: the IK runs in the
+    mimic and in compose, the LBS in compose), then one more step and
+    render under ``torch.profiler`` for the device's busy share and its
+    heaviest operations."""
+    import torch
+
+    from real2sim_eval_tpu_torch.physics import fused_step
+    from real2sim_eval_tpu_torch.renderer import lbs, raster
+
+    acc = {}
+
+    def timer(label):
+        def make(orig):
+            def wrapper(*args, **kwargs):
+                ms, out = time_host(lambda: orig(*args, **kwargs))
+                acc[label] = acc.get(label, 0.0) + ms
+                return out
+            return wrapper
+        return make
+
+    stages = [(ev, "_mimic", "mimic (IK + FK)"), (ev, "_ik", "IK"),
+              (ev, "_env_pre", "grasp + controls"),
+              (fused_step, "freeze", "freezes"),
+              (fused_step, "spring_mass_step", "K3 spring_mass_step"),
+              (ev, "compose", "compose"), (lbs, "interpolate_motions", "LBS"),
+              (raster, "preprocess_gaussians", "preprocess"),
+              (raster, "bin_gaussians", "binning"),
+              (raster, "rasterize_tiles_batch", "K1 tile_composite")]
+    undo = [patch(obj, name, timer(label)) for obj, name, label in stages]
+    try:
+        step_ms, _ = time_host(lambda: ev.step(actions))
+        render_ms, _ = time_host(ev.render)
+    finally:
+        for u in reversed(undo):
+            u()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_ms, _ = time_host(lambda: (ev.step(actions), ev.render()))
+    events = prof.key_averages()
+    # device rows are the kernels themselves; a CPU operator's self device
+    # time is that of the kernels it launched (the same time again)
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    ops = sorted((e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def top(rows, n):
+        return [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                for e in rows[:n]]
+
+    emit({"phase": "breakdown", "step_ms": step_ms, "render_ms": render_ms,
+          "stages_ms": acc, "profiled_wall_ms": wall_ms,
+          "device_ms": device_ms,
+          # over the unprofiled flagship step + render (the profiler slows
+          # the host, not the device)
+          "device_busy_share": device_ms / total_ms,
+          "top_kernels_ms": top(kernels, 8), "top_ops_ms": top(ops, 10)})
+
+
+def measure_kernels(ev, actions, launches):
+    """Each kernel at the shapes the main path gives it: its inputs are
+    captured from one more flagship step and render, then the kernel, its
+    plain version and the least time the card could take are measured."""
+    from real2sim_eval_tpu_torch.physics import fused_step
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+    from real2sim_eval_tpu_torch.renderer import raster
+    from real2sim_eval_tpu_torch.renderer.tile_kernel import \
+        rasterize_tiles_batch
+
+    k3_seen, undo3 = capture(fused_step, "spring_mass_step")
+    k1_seen, undo1 = capture(raster, "rasterize_tiles_batch")
+    try:
+        ev.step(actions)
+        ev.render()
+    finally:
+        undo3()
+        undo1()
+    sync()
+
+    opts, tab, state = k3_seen["args"]
+    k3_ms = time_cuda(lambda: fused_step.spring_mass_step(opts, tab, state), 3)
+    plain_ms, _ = time_host(lambda: sm.run_substeps_plain(opts, tab, state))
+    k3_out = check_k3("flagship", opts, tab, state)
+    k3_bound, k3_by = k3_bound_ms(opts, tab, state)
+    k3 = {"name": "spring_mass_step", "route": "cuda",
+          "source": "real2sim_eval_tpu_torch/csrc/spring_mass_step.cu",
+          "replaces": "real2sim_eval_tpu/physics/pallas_step.py:214",
+          "launches": launches["spring_mass_step"],
+          "max_abs_err": k3_out["max_abs"]["x"],
+          "ms": k3_ms, "plain_ms": plain_ms, "bound_ms": k3_bound,
+          "bound_by": k3_by, "library_ms": None}
+
+    pairs, starts, ends, n_tx, n_ty = k1_seen["args"][:5]
+    k1_ms = time_cuda(lambda: rasterize_tiles_batch(pairs, starts, ends, n_tx,
+                                                    n_ty), 10)
+    rgb_k, dep_k, rgb_p, dep_p, k1_plain_ms = composite_both(
+        pairs, starts, ends, n_tx, n_ty)
+    walks = pixel_pair_walks(pairs, starts, ends, n_tx)
+    k1_bound, k1_by = k1_bound_ms(pairs, starts, rgb_k, walks)
+    k1 = {"name": "tile_composite", "route": "cuda",
+          "source": "real2sim_eval_tpu_torch/csrc/tile_composite.cu",
+          "replaces": "real2sim_eval_tpu/renderer/tile_kernel.py:157",
+          "launches": launches["tile_composite"],
+          "max_abs_err": float((rgb_k - rgb_p).abs().max()),
+          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+          "bound_by": k1_by, "library_ms": None}
+    flips = depth_flips(dep_k, dep_p)
+    emit({"phase": "kernel_inputs",
+          "tile_composite": {"instances": int(starts.shape[0]),
+                             "tiles": int(starts.numel()),
+                             "pairs": int(pairs.shape[1]),
+                             "pixel_pair_blends": walks,
+                             "depth_flips": flips},
+          "spring_mass_step": {
+              "envs": int(state.x.shape[0]), "particles": int(state.x.shape[1]),
+              "neighbour_slots": int(tab.nbr_k.shape[1])}})
+    if k1["max_abs_err"] > RGB_TOL or flips > flips_limit(dep_k.numel()):
+        fail(f"K1 disagrees at the main path's shapes: {k1}")
+    return [k3, k1]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from real2sim_eval_tpu_torch import ext
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "name": name,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "count": torch.cuda.device_count()})
+
+    t0 = time.perf_counter()
+    ext.load()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "flags": list(ext.CUDA_FLAGS)})
+
+    check_k1_small()
+    check_k3_grasp()
+    check_k3_loop()
+    check_reference()
+    ev, actions, launches, flagship = run_flagship()
+    stage_breakdown(ev, actions, flagship["total_ms"])
+    kernels = measure_kernels(ev, actions, launches)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,202 @@
+// Python binding of the port's CUDA kernels: the only source that includes
+// PyTorch's headers. Callers (renderer/tile_kernel.py,
+// physics/fused_step.py) validate shapes and allocate outputs; this file
+// checks device, dtype, contiguity and every shape the kernels index through
+// once more, launches on the current stream and checks the launch.
+
+#include <torch/extension.h>
+
+#include <algorithm>
+
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+
+#include "spring_mass_step.h"
+#include "tile_composite.h"
+
+namespace {
+
+void check(const torch::Tensor& t, const char* name, at::ScalarType dtype) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == dtype, name, " has the wrong dtype");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+void tile_composite(torch::Tensor pairs, torch::Tensor starts,
+                    torch::Tensor ends, int64_t n_tiles_x, int64_t n_tiles_y,
+                    double bg0, double bg1, double bg2, torch::Tensor rgb,
+                    torch::Tensor depth) {
+  check(pairs, "pairs", at::kFloat);
+  check(starts, "tile_starts", at::kInt);
+  check(ends, "tile_ends", at::kInt);
+  check(rgb, "rgb", at::kFloat);
+  check(depth, "depth", at::kFloat);
+  TORCH_CHECK(pairs.dim() == 2 && pairs.size(0) == 10, "pairs must be (10, P)");
+  TORCH_CHECK(starts.dim() == 2 && starts.size(1) == n_tiles_x * n_tiles_y &&
+                  ends.sizes() == starts.sizes(),
+              "tile_starts and tile_ends must be (I, n_tiles_x * n_tiles_y)");
+  const int64_t n_inst = starts.size(0);
+  const int64_t h_pad = 8 * n_tiles_y, w_pad = 128 * n_tiles_x;
+  TORCH_CHECK(rgb.dim() == 4 && rgb.size(0) == n_inst && rgb.size(1) == 3 &&
+                  rgb.size(2) == h_pad && rgb.size(3) == w_pad,
+              "rgb must be (I, 3, 8 * n_tiles_y, 128 * n_tiles_x)");
+  TORCH_CHECK(depth.dim() == 3 && depth.size(0) == n_inst &&
+                  depth.size(1) == h_pad && depth.size(2) == w_pad,
+              "depth must be (I, 8 * n_tiles_y, 128 * n_tiles_x)");
+  const c10::cuda::CUDAGuard guard(pairs.device());
+  C10_CUDA_CHECK(tile_composite_launch(
+      pairs.data_ptr<float>(), pairs.size(1), starts.data_ptr<int>(),
+      ends.data_ptr<int>(), (int)n_inst, (int)n_tiles_x, (int)n_tiles_y,
+      (float)bg0, (float)bg1, (float)bg2, rgb.data_ptr<float>(),
+      depth.data_ptr<float>(), c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void spring_mass_step(
+    torch::Tensor x, torch::Tensor v, torch::Tensor masses,
+    torch::Tensor nbr_idx, torch::Tensor nbr_rest, torch::Tensor nbr_k,
+    torch::Tensor nbr_c, torch::Tensor scal, torch::Tensor sc_sel,
+    torch::Tensor sc_idx, torch::Tensor sc_ok, torch::Tensor sc_invm,
+    torch::Tensor sc_msel, torch::Tensor c_inv, torch::Tensor c_ok,
+    torch::Tensor pose, torch::Tensor dyn_lin, torch::Tensor dyn_omega,
+    torch::Tensor corners, torch::Tensor g_origin, torch::Tensor g_isp,
+    torch::Tensor g_dims, torch::Tensor g_off, int64_t n_f, int64_t S,
+    double dt, double gz, double rev, double ground, double cdist,
+    bool use_pusher, torch::Tensor x_out, torch::Tensor v_out,
+    torch::Tensor ff_out) {
+  for (const auto& p : {std::make_pair(&x, "x"), std::make_pair(&v, "v"),
+                  std::make_pair(&masses, "masses"),
+                  std::make_pair(&nbr_rest, "nbr_rest"),
+                  std::make_pair(&nbr_k, "nbr_k"),
+                  std::make_pair(&nbr_c, "nbr_c"),
+                  std::make_pair(&scal, "scal"),
+                  std::make_pair(&sc_invm, "sc_invm"),
+                  std::make_pair(&sc_msel, "sc_msel"),
+                  std::make_pair(&pose, "pose"),
+                  std::make_pair(&dyn_lin, "dyn_lin"),
+                  std::make_pair(&dyn_omega, "dyn_omega"),
+                  std::make_pair(&corners, "corners"),
+                  std::make_pair(&g_origin, "g_origin"),
+                  std::make_pair(&g_isp, "g_isp"),
+                  std::make_pair(&x_out, "x_out"),
+                  std::make_pair(&v_out, "v_out"),
+                  std::make_pair(&ff_out, "ff_out")})
+    check(*p.first, p.second, at::kFloat);
+  for (const auto& p : {std::make_pair(&nbr_idx, "nbr_idx"),
+                  std::make_pair(&sc_sel, "sc_sel"),
+                  std::make_pair(&sc_idx, "sc_idx"),
+                  std::make_pair(&sc_ok, "sc_ok"),
+                  std::make_pair(&c_inv, "c_inv"),
+                  std::make_pair(&c_ok, "c_ok"),
+                  std::make_pair(&g_dims, "g_dims")})
+    check(*p.first, p.second, at::kInt);
+  check(g_off, "g_off", at::kLong);
+
+  // every shape the kernel indexes through (it reads them unchecked)
+  TORCH_CHECK(x.dim() == 3 && x.size(2) == 3, "x must be (B, N, 3)");
+  const int64_t B = x.size(0), N = x.size(1);
+  for (const auto* t : {&v, &x_out, &v_out})
+    TORCH_CHECK(t->sizes() == x.sizes(), "v, x_out and v_out must match x");
+  TORCH_CHECK(masses.dim() == 1 && masses.size(0) == N, "masses must be (N)");
+  TORCH_CHECK(nbr_idx.dim() == 2 && nbr_idx.size(1) == N,
+              "nbr_idx must be (D, N)");
+  for (const auto* t : {&nbr_rest, &nbr_k, &nbr_c})
+    TORCH_CHECK(t->sizes() == nbr_idx.sizes(),
+                "nbr_rest, nbr_k and nbr_c must match nbr_idx (D, N)");
+  TORCH_CHECK(scal.dim() == 1 && scal.size(0) == 8, "scal must be (8)");
+  TORCH_CHECK(sc_sel.dim() == 2 && sc_sel.size(0) == B &&
+                  sc_sel.size(1) <= N,
+              "sc_sel must be (B, M) with M <= N");
+  const int64_t M = sc_sel.size(1);
+  TORCH_CHECK(sc_idx.dim() == 3 && sc_idx.size(0) == B && sc_idx.size(1) == M,
+              "sc_idx must be (B, M, Ks)");
+  for (const auto* t : {&sc_ok, &sc_invm})
+    TORCH_CHECK(t->sizes() == sc_idx.sizes(),
+                "sc_ok and sc_invm must match sc_idx (B, M, Ks)");
+  TORCH_CHECK(sc_msel.sizes() == sc_sel.sizes(), "sc_msel must be (B, M)");
+  TORCH_CHECK(c_inv.dim() == 2 && c_inv.size(0) == B && c_inv.size(1) == N,
+              "c_inv must be (B, N)");
+  TORCH_CHECK(c_ok.dim() == 2 && c_ok.size(0) == B, "c_ok must be (B, PM)");
+  const int64_t C = g_isp.numel();
+  TORCH_CHECK(g_isp.dim() == 1 && C <= 8, "g_isp must be (C) with C <= 8");
+  TORCH_CHECK(g_origin.numel() == 3 * C && g_dims.numel() == 3 * C &&
+                  g_off.numel() == C,
+              "g_origin and g_dims must be (C, 3), g_off (C)");
+  TORCH_CHECK(n_f >= 0 && n_f <= C, "n_f must lie in [0, C]");
+  TORCH_CHECK(dyn_lin.dim() == 3 && dyn_lin.size(0) == B &&
+                  dyn_lin.size(1) == std::max<int64_t>(n_f, 1) &&
+                  dyn_lin.size(2) == 3,
+              "dyn_lin must be (B, max(n_f, 1), 3)");
+  TORCH_CHECK(dyn_omega.dim() == 2 && dyn_omega.size(0) == B &&
+                  dyn_omega.size(1) == 3,
+              "dyn_omega must be (B, 3)");
+  TORCH_CHECK(ff_out.dim() == 3 && ff_out.size(0) == B &&
+                  ff_out.size(1) >= n_f && ff_out.size(2) == 3,
+              "ff_out must be (B, F, 3) with F >= n_f");
+  if (C > 0) {
+    TORCH_CHECK(pose.dim() == 4 && pose.size(0) == B && pose.size(1) == S &&
+                    pose.size(2) == C && pose.size(3) == 24,
+                "pose must be (B, S, C, 24)");
+    TORCH_CHECK(corners.dim() == 2 && corners.size(1) == 8,
+                "corners must be (cells, 8)");
+  }
+
+  SpringStepArgs a;
+  a.B = (int)B;
+  a.N = (int)N;
+  a.D = (int)nbr_idx.size(0);
+  a.M = (int)M;
+  a.Ks = (int)sc_idx.size(2);
+  a.PM = (int)c_ok.size(1);
+  a.C = (int)C;
+  a.n_f = (int)n_f;
+  a.F = (int)ff_out.size(1);
+  a.S = (int)S;
+  a.dt = (float)dt;
+  a.gz = (float)gz;
+  a.rev = (float)rev;
+  a.ground = (float)ground;
+  a.cdist = (float)cdist;
+  a.use_pusher = use_pusher ? 1 : 0;
+  a.x = x.data_ptr<float>();
+  a.v = v.data_ptr<float>();
+  a.masses = masses.data_ptr<float>();
+  a.nbr_idx = nbr_idx.data_ptr<int>();
+  a.nbr_rest = nbr_rest.data_ptr<float>();
+  a.nbr_k = nbr_k.data_ptr<float>();
+  a.nbr_c = nbr_c.data_ptr<float>();
+  a.scal = scal.data_ptr<float>();
+  a.sc_sel = sc_sel.data_ptr<int>();
+  a.sc_idx = sc_idx.data_ptr<int>();
+  a.sc_ok = sc_ok.data_ptr<int>();
+  a.sc_invm = sc_invm.data_ptr<float>();
+  a.sc_msel = sc_msel.data_ptr<float>();
+  a.c_inv = c_inv.data_ptr<int>();
+  a.c_ok = c_ok.data_ptr<int>();
+  a.pose = pose.data_ptr<float>();
+  a.dyn_lin = dyn_lin.data_ptr<float>();
+  a.dyn_omega = dyn_omega.data_ptr<float>();
+  a.corners = corners.data_ptr<float>();
+  a.g_origin = g_origin.data_ptr<float>();
+  a.g_isp = g_isp.data_ptr<float>();
+  a.g_dims = g_dims.data_ptr<int>();
+  a.g_off = reinterpret_cast<const long long*>(g_off.data_ptr<int64_t>());
+  a.x_out = x_out.data_ptr<float>();
+  a.v_out = v_out.data_ptr<float>();
+  a.ff_out = ff_out.data_ptr<float>();
+  const c10::cuda::CUDAGuard guard(x.device());
+  C10_CUDA_CHECK(
+      spring_mass_step_launch(&a, c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("tile_composite", &tile_composite,
+        "Tile compositor over (instance, 8x128 tile) (CUDA)");
+  m.def("spring_mass_step", &spring_mass_step,
+        "All substeps of one spring-mass control step, one CTA per env "
+        "(CUDA)");
+}

@@ -1,0 +1,324 @@
+"""Batched episode evaluation: B envs step and render in lockstep.
+
+Counterpart of the JAX package's parallel/batched.py, on its full-pipeline
+render branch (its ``RasterConfig(incremental="off")``). One control step:
+
+  1. the velocity-control mimic: batched IK toward the action pose, a
+     clamped joint step, FK of the new pose (``step`` with velocity control);
+  2. the grasp machine and the per-env control build;
+  3. the spring-mass step: freezes in PyTorch, then all substeps in the
+     CUDA kernel K3 (physics/fused_step.py);
+
+and one render: LBS of the object splats plus robot articulation for every
+env (``compose``), per-camera preprocess and exact binning, then ONE launch
+of the tile compositor K1 over every (env, camera, tile).
+
+Scene assets come in as ``BatchedAssets`` (see convert.py and testing.py);
+the host-side asset build of the JAX package (envs, loaders) is not part
+of this module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kinematics import KinematicChain, make_ik_fn
+from ..physics.dynamics import GraspState, make_ctrl_builder
+from ..physics.fused_step import make_fused_step_fn
+from ..physics.spring_mass import (MeshColliderSet, PhysicsOptions,
+                                   SpringMassParams, SpringMassState)
+from ..renderer import lbs as lbs_mod
+from ..renderer.camera import Camera, setup_camera, wrist_w2c
+from ..renderer.raster import RasterConfig, rasterize_batch
+from ..renderer.scene import RobotArticulation
+from ..utils import transforms as tf
+from ..utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedState:
+    sm: SpringMassState           # leaves (B, ...)
+    grasp: GraspState             # leaves (B,)
+    grippers: torch.Tensor        # (B, 14) [xyz, vel, quat, rot vel, open]
+    qpos7: torch.Tensor           # (B, 7) current IK arm pose
+    rel_pose: torch.Tensor        # (B, 4, 4) object pose delta vs env 0
+    static_pose: torch.Tensor     # (B, M, 4, 4)
+    rest_x: torch.Tensor          # (B, N, 3)
+    step: int = 0
+
+    def replace(self, **kw) -> "BatchedState":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedAssets:
+    """Everything the evaluator needs: shared scene assets + initial state."""
+
+    params: SpringMassParams
+    opts: PhysicsOptions
+    colliders: MeshColliderSet     # static_pose rides in the state
+    finger_centroids: torch.Tensor  # (n_fingers, 3)
+    global_translation: torch.Tensor  # (3,)
+    force_threshold: float
+    obj: dict                      # canonical object splats (env-0 frame)
+    bones0: torch.Tensor           # (n_bones, 3) rest sim particles
+    table: dict                    # scene scan splats
+    mask: torch.Tensor             # (N_table,) i32 link id per scan splat
+    mesh_params: dict              # name -> attached-mesh splats
+    qpos0: torch.Tensor            # (7,)
+    cameras: list                  # [(w, h, K (3, 3), w2c (4, 4))]
+    wrist_cameras: list            # [(w, h, K (3, 3), eef2c (4, 4))]
+    chain: KinematicChain
+    articulation: RobotArticulation
+    use_shs: bool
+    fps: float
+    do_velocity_control: bool
+    state: BatchedState            # initial state
+
+
+class BatchedEvaluator:
+    """Build once from BatchedAssets, then step/render all envs batched."""
+
+    def __init__(self, assets: BatchedAssets, episode_ids,
+                 raster_config: RasterConfig | None = None, device="cuda"):
+        self.device = resolve_device(device)
+        if assets.bones0.device.type != self.device.type:
+            raise ValueError(f"assets live on {assets.bones0.device}, the "
+                             f"evaluator runs on {self.device}")
+        # f32 products stay true f32 (physics, IK and LBS carry real
+        # values through small matmuls); "highest" is also the default
+        torch.set_float32_matmul_precision("highest")
+        self.assets = assets
+        self.episode_ids = list(episode_ids)
+        if len(self.episode_ids) != assets.state.sm.x.shape[0]:
+            raise ValueError("episode_ids do not match the assets' batch")
+        self.raster_config = raster_config or RasterConfig()
+        if self.raster_config.backend != "tiles":
+            raise ValueError("the batched evaluator renders with the tile "
+                             "pipeline (RasterConfig(backend='tiles'))")
+        self.state = assets.state
+        self.render_telemetry = None
+
+        a = assets
+        self.relations = lbs_mod.knn_relations(a.bones0)
+        self.weights, self.weights_idx = lbs_mod.knn_weights(
+            a.bones0, a.obj["means3D"])
+        self.sh_deg = (int(np.sqrt(a.obj["shs"].shape[1]) - 1)
+                       if a.use_shs else 0)
+        self._eef_idx = a.chain.link_index("link7")
+        self._ik = make_ik_fn(a.chain, self._eef_idx, n_active=7)
+        has_coll = bool(a.colliders.fingers or a.colliders.statics)
+        self._step_fn = make_fused_step_fn(a.opts, has_colliders=has_coll,
+                                           device=self.device)
+        self._build_ctrl = make_ctrl_builder(a.opts, a.force_threshold)
+        self._fixed_cams = [setup_camera(w, h, k, w2c)
+                            for w, h, k, w2c in a.cameras]
+        self._wrist_cams = [
+            (Camera(width=int(w), height=int(h), fx=float(k[0][0]),
+                    fy=float(k[1][1]), cx=float(k[0][2]), cy=float(k[1][2])),
+             torch.as_tensor(np.asarray(e, np.float32), device=self.device))
+            for w, h, k, e in a.wrist_cameras]
+        if len({(c.height, c.width) for c, _ in
+                self._fixed_cams + self._wrist_cams}) > 1:
+            raise NotImplementedError(
+                "the batched render needs one resolution for all cameras")
+
+    @property
+    def batch_size(self) -> int:
+        return len(self.episode_ids)
+
+    # ------------------------------------------------------------------
+    # control step
+    # ------------------------------------------------------------------
+
+    def _env_pre(self, state: BatchedState, actions: torch.Tensor):
+        """Per-env eef bookkeeping + grasp machine -> SubstepControls."""
+        a = self.assets
+        B = actions.shape[0]
+        g = state.grippers
+        eef_rot = tf.quat_to_rot(g[:, 6:10])
+        eef_xyz_next = actions[:, :3]
+        eef_rot_next = actions[:, 3:12].reshape(B, 3, 3)
+        exyz = g[:, :3] + a.global_translation
+        eef_vel = (eef_xyz_next + a.global_translation - exyz) * a.fps
+        rot_delta = eef_rot @ torch.linalg.inv_ex(eef_rot_next)[0]
+        eef_rot_vel = tf.rot_to_axis_angle(rot_delta) * a.fps
+        colliders = a.colliders.replace(static_pose=state.static_pose)
+        ctrl, grasp, o_end = self._build_ctrl(
+            colliders, state.sm, state.grasp, exyz, eef_rot, eef_vel,
+            eef_rot_vel, actions[:, 12], a.finger_centroids)
+        grippers = torch.cat([eef_xyz_next, eef_vel,
+                              tf.rot_to_quat(eef_rot_next), eef_rot_vel,
+                              o_end[:, None]], dim=1)
+        return ctrl, grasp, grippers, colliders
+
+    def _physics_step(self, state: BatchedState, actions) -> BatchedState:
+        ctrl, grasp, grippers, colliders = self._env_pre(state, actions)
+        sm = self._step_fn(self.assets.params, colliders, state.sm, ctrl,
+                           state.rest_x)
+        return state.replace(sm=sm, grasp=grasp, grippers=grippers,
+                             step=state.step + 1)
+
+    def _mimic(self, actions, qpos7, gripper_counts):
+        """Velocity-control mimic: IK toward the action pose, a joint step
+        clamped to 0.1 rad, FK of the new pose."""
+        chain = self.assets.chain
+        B = actions.shape[0]
+        target = tf.make_se3(actions[:, 3:12].reshape(B, 3, 3), actions[:, :3])
+        q_sol = self._ik(qpos7, target)[:, :7]
+        delta = q_sol - qpos7
+        norm = torch.linalg.vector_norm(delta, dim=-1, keepdim=True)
+        delta = torch.where(norm > 0.10,
+                            delta / torch.clamp(norm, min=1e-9) * 0.10, delta)
+        new_q = qpos7 + (delta / 0.02 * 0.15) / 30.0
+        q_full = new_q
+        if chain.n_dof > 7:
+            q_full = torch.cat([new_q, new_q.new_zeros(
+                (B, chain.n_dof - 7))], dim=1)
+        T = chain.fk_link(q_full, self._eef_idx)
+        cur_g = gripper_counts / 800.0
+        dg = torch.clamp(actions[:, 12] - cur_g, -2.0 / 30.0, 2.0 / 30.0)
+        out = torch.cat([T[:, :3, 3], T[:, :3, :3].reshape(B, 9),
+                         (cur_g + dg)[:, None]], dim=1)
+        return out, new_q
+
+    def step_mimic(self, state: BatchedState, actions) -> BatchedState:
+        acts, new_q = self._mimic(actions, state.qpos7,
+                                  state.grippers[:, 13] * 800.0)
+        return self._physics_step(state.replace(qpos7=new_q), acts)
+
+    def step(self, actions, do_velocity_control: bool | None = None):
+        """actions: (B, 13) cartesian [xyz, rot9, gripper]."""
+        actions = torch.as_tensor(actions, dtype=torch.float32,
+                                  device=self.device)
+        dvc = (self.assets.do_velocity_control if do_velocity_control is None
+               else do_velocity_control)
+        if dvc:
+            self.state = self.step_mimic(self.state, actions)
+        else:
+            self.state = self._physics_step(self.state, actions)
+        return self.state
+
+    # ------------------------------------------------------------------
+    # render
+    # ------------------------------------------------------------------
+
+    def compose(self, state: BatchedState, dc_only: bool = False):
+        """Full-scene gaussians per env, dict of (B, N, ...) tensors, and
+        the IK arm pose for the current eef."""
+        a = self.assets
+        B = state.rel_pose.shape[0]
+        R = state.rel_pose[:, :3, :3]
+        t = state.rel_pose[:, :3, 3]
+        means = a.obj["means3D"][None] @ R.transpose(-1, -2) + t[:, None]
+        quats = tf.quat_multiply(tf.rot_to_quat(R)[:, None],
+                                 a.obj["rotations"][None])
+        bones = a.bones0[None] @ R.transpose(-1, -2) + t[:, None]
+        xyz = lbs_mod.interpolate_motions(
+            bones, state.sm.x - bones, self.relations, self.weights,
+            self.weights_idx, means)
+
+        eef_rot = tf.quat_to_rot(state.grippers[:, 6:10])
+        target = tf.make_se3(eef_rot, state.grippers[:, :3])
+        qpos7 = self._ik(state.qpos7, target)[:, :7]
+        q_full = a.articulation.full_qpos(qpos7,
+                                          state.grippers[:, 13] * 800.0)
+        t_means, t_quats = a.articulation.apply(
+            q_full, a.table["means3D"], a.table["rotations"], a.mask)
+
+        def shared(v):
+            v = v[:, :1] if (dc_only and v.dim() == 3) else v
+            return v[None].expand((B,) + v.shape)
+
+        parts = {"means3D": [xyz], "rotations": [quats]}
+        for k in ("shs", "opacities", "scales"):
+            parts[k] = [shared(a.obj[k])]
+        for pm in a.mesh_params.values():
+            for k in parts:
+                parts[k].append(shared(pm[k]))
+        parts["means3D"].append(t_means)
+        parts["rotations"].append(t_quats)
+        for k in ("shs", "opacities", "scales"):
+            parts[k].append(shared(a.table[k]))
+        return {k: torch.cat(v, dim=1) for k, v in parts.items()}, qpos7
+
+    def compose_scenes(self):
+        """Full-scene gaussians per env (diagnostics / golden checks)."""
+        return self.compose(self.state)[0]
+
+    def render(self):
+        """Returns (images (B, C_fixed, 3, H, W), depths (B, C_fixed, H, W),
+        wrist images, wrist depths) and updates the cached IK qpos. Render
+        telemetry lands in ``self.render_telemetry`` as a (fixed, wrist)
+        pair: fixed (n_fixed, B, 4) i32 [n_dirty, dropped_tiles,
+        dropped_pairs, binning_dropped], wrist (n_wrist, B) i32."""
+        st = self.state
+        B = st.rel_pose.shape[0]
+        scenes, qpos_new = self.compose(st, dc_only=self.sh_deg == 0)
+        cam_list = [(cam, torch.as_tensor(w2c, device=self.device)[None]
+                     .expand(B, 4, 4)) for cam, w2c in self._fixed_cams]
+        eef_rot = tf.quat_to_rot(st.grippers[:, 6:10])
+        for cam, eef2c in self._wrist_cams:
+            cam_list.append((cam, wrist_w2c(eef2c, st.grippers[:, :3],
+                                            eef_rot)))
+        rgb, depth, drops = rasterize_batch(cam_list, scenes, self.sh_deg,
+                                            config=self.raster_config,
+                                            return_drops=True,
+                                            device=self.device)
+        nf = len(self._fixed_cams)
+        ims = rgb[:nf].transpose(0, 1)
+        depths = depth[:nf].transpose(0, 1)
+        wims = rgb[nf:].transpose(0, 1)
+        wdepths = depth[nf:].transpose(0, 1)
+        tele = torch.zeros((nf, B, 4), dtype=torch.int32, device=self.device)
+        tele[:, :, 3] = drops[:nf]
+        self.render_telemetry = (tele, drops[nf:])
+        self.state = st.replace(qpos7=qpos_new)
+        return ims, depths, wims, wdepths
+
+    def render_drops(self) -> dict:
+        """Named drop counters of the last render; any nonzero value means
+        a render budget clipped real pairs. Always 0 here: pair buffers are
+        sized exactly."""
+        if self.render_telemetry is None:
+            return {}
+        fixed, wrist = (t.cpu().numpy() for t in self.render_telemetry)
+        return {
+            "fixed_dropped_tiles": int(fixed[..., 1].sum()),
+            "fixed_dropped_pairs": int(fixed[..., 2].sum()),
+            "fixed_binning_dropped": int(fixed[..., 3].sum()),
+            "wrist_binning_dropped": int(wrist.sum()),
+        }
+
+    def observations(self):
+        """Batched policy observations."""
+        ims, depths, wims, wdepths = self.render()
+        g = self.state.grippers
+        return {
+            "observation.state": torch.cat(
+                [g[:, :3], g[:, 6:10], 1.0 - g[:, 13:14]], dim=1),
+            "observation.images.front": ims[:, 0],
+            "observation.images.wrist": (wims[:, 0] if wims.shape[1] > 0
+                                         else None),
+            "images": ims, "depths": depths,
+            "wrist_images": wims, "wrist_depths": wdepths,
+        }
+
+    def telemetry(self) -> dict:
+        """Physics saturation counters of the last control step."""
+        t = self.state.sm.telemetry
+        t = (np.zeros((self.batch_size, 4), np.int32) if t is None
+             else t.cpu().numpy())
+        return {
+            "self_candidates_dropped": t[:, 0],
+            "self_particles_dropped": t[:, 1],
+            "contact_particles_dropped": t[:, 2],
+            "patch_escapes": t[:, 3],
+        }
+
+    def particle_states(self) -> np.ndarray:
+        """(B, N, 3) world-frame particles (for success metrics)."""
+        return (self.state.sm.x - self.assets.global_translation).cpu().numpy()

@@ -1,0 +1,167 @@
+"""The whole slice: the port's BatchedEvaluator against the JAX one.
+
+The JAX evaluator is built as bench.py builds it, at a small size: B=2, a
+rope of 120 particles, a 400-splat table scan with robot splats on the
+built-in arm, the 64x128 test cameras (one fixed, one wrist), dt=2e-4 and
+self-collision on. It runs its plain references of both kernels
+(``physics_backend="xla"``, ``RasterConfig(backend="reference")``). Its
+assets are carried across as numpy arrays (``convert.assets_from_numpy``),
+both evaluators take two velocity-controlled steps and render, and the
+states and frames are compared at the JAX package's own tolerances
+(tests/test_batched.py: particles 5e-5, grippers 1e-5)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from real2sim_eval_tpu.testing import (BUILTIN_URDF, TEST_CAMERAS, full_cfg,
+                                       make_rope_points, make_synthetic_scene,
+                                       write_fixture_checkpoint)
+from real2sim_eval_tpu_torch.convert import assets_from_numpy
+
+EPISODES = [0, 4]
+
+
+def jax_assets_tree(ev) -> dict:
+    """Flat numpy dict of everything the JAX evaluator set up."""
+    tree = {}
+    for f in dataclasses.fields(ev.params):
+        v = getattr(ev.params, f.name)
+        if f.name in ("springs", "rest_lengths", "spring_Y_log", "masses",
+                      "nbr_idx", "nbr_rest", "nbr_Y_log", "collision_mask",
+                      "rest_x", "cand_invalid") or f.name.startswith("collide"):
+            if v is not None:
+                tree[f"params/{f.name}"] = np.asarray(v)
+    tree.update({f"opts/{k}": v
+                 for k, v in dataclasses.asdict(ev.opts).items()})
+    c = ev.colliders
+    for kind, grids in (("fingers", c.fingers), ("statics", c.statics)):
+        for i, g in enumerate(grids):
+            for k in ("origin", "inv_spacing", "values"):
+                tree[f"colliders/{kind}/{i}/{k}"] = np.asarray(getattr(g, k))
+    tree["colliders/finger_pose_table"] = np.asarray(c.finger_pose_table)
+    for name, arrs in (("obj", dict(means3D=ev.obj_means0,
+                                    rotations=ev.obj_quats0, shs=ev.obj_shs,
+                                    scales=ev.obj_scales,
+                                    opacities=ev.obj_opac)),
+                       ("table", ev.table)):
+        tree.update({f"{name}/{k}": np.asarray(v) for k, v in arrs.items()})
+    for mname, pm in ev.mesh_params.items():
+        tree.update({f"mesh_params/{mname}/{k}": np.asarray(v)
+                     for k, v in pm.items()})
+    for key, cams, ext in (("cameras", ev.cameras, "w2c"),
+                           ("wrist_cameras", ev.wrist_cameras, "eef2c")):
+        for i, (w, h, k, e) in enumerate(cams):
+            tree.update({f"{key}/{i}/w": w, f"{key}/{i}/h": h,
+                         f"{key}/{i}/K": np.asarray(k),
+                         f"{key}/{i}/{ext}": np.asarray(e)})
+    ch = ev._chain
+    tree["chain/link_names"] = np.asarray(ch.link_names)
+    for k in ("parent", "joint_type", "origins", "axes", "dof_index",
+              "n_dof", "topo_order", "lower", "upper"):
+        tree[f"chain/{k}"] = np.asarray(getattr(ch, k))
+    art = ev.articulation
+    tree.update({"articulation/link_ids": np.asarray(art.link_ids),
+                 "articulation/base_inv": np.asarray(art.base_inv),
+                 "articulation/offsets": np.asarray(art.offsets),
+                 "articulation/active": np.asarray(art.active),
+                 "articulation/use_pusher": art.use_pusher})
+    st = ev.state
+    tree.update({
+        "finger_centroids": np.asarray(ev.finger_centroids),
+        "global_translation": np.asarray(ev.global_translation),
+        "force_threshold": ev.force_threshold, "fps": ev._fps,
+        "use_shs": ev.use_shs,
+        "do_velocity_control": bool(ev.cfg.env.robot.do_velocity_control),
+        "qpos0": np.asarray(ev._qpos0, np.float32),
+        "bones0": np.asarray(ev.bones0), "mask": np.asarray(ev.mask),
+        "state/x": np.asarray(st.sm.x), "state/v": np.asarray(st.sm.v),
+        "state/finger_forces": np.asarray(st.sm.finger_forces),
+        "state/telemetry": np.asarray(st.sm.telemetry),
+        "state/current_openness": np.asarray(st.grasp.current_openness),
+        "state/grasped": np.asarray(st.grasp.grasped),
+        "state/initialized": np.asarray(st.grasp.initialized),
+        "state/grippers": np.asarray(st.grippers),
+        "state/qpos7": np.asarray(st.qpos7),
+        "state/rel_pose": np.asarray(st.rel_pose),
+        "state/static_pose": np.asarray(st.static_pose),
+        "state/rest_x": np.asarray(st.rest_x), "state/step": int(st.step),
+    })
+    return tree
+
+
+@pytest.fixture(scope="module")
+def evaluators(tmp_path_factory):
+    from real2sim_eval_tpu.parallel import BatchedEvaluator as JEval
+    from real2sim_eval_tpu.renderer import RasterConfig as JRC
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
+
+    root = tmp_path_factory.mktemp("slice")
+    rope = make_rope_points(n=120, length=0.3)
+    write_fixture_checkpoint(root, "rope_slice", rope, spring_Y=2e3)
+    gs = make_synthetic_scene(root / "scans", rope_pts=rope,
+                              ik_urdf=BUILTIN_URDF, n_table=400)
+    gs["use_grid_randomization"] = True
+    cfg = full_cfg(root, "rope_slice", gs=gs, cameras=TEST_CAMERAS,
+                   physics_over=dict(dt=2e-4, self_collision=True))
+    jev = JEval(cfg, episode_ids=EPISODES,
+                raster_config=JRC(backend="reference"), physics_backend="xla")
+    tev = TEval(assets_from_numpy(jax_assets_tree(jev), "cpu"), EPISODES,
+                device="cpu")
+    return jev, tev
+
+
+def hold_then_reach_actions(B):
+    rot = np.diag([1.0, -1.0, -1.0]).reshape(-1)
+    a = np.concatenate([[0.26, 0.02, 0.38], rot, [0.6]])
+    return np.tile(a, (B, 1)).astype(np.float32)
+
+
+def test_whole_slice_matches_jax(evaluators):
+    import jax.numpy as jnp
+
+    jev, tev = evaluators
+    acts = hold_then_reach_actions(len(EPISODES))
+    for _ in range(2):
+        jev.step(jnp.asarray(acts))
+        tev.step(acts)
+    js, ts = jev.state, tev.state
+    assert np.isfinite(ts.sm.x.numpy()).all()
+    np.testing.assert_allclose(ts.sm.x.numpy(), np.asarray(js.sm.x),
+                               atol=5e-5)
+    np.testing.assert_allclose(ts.grippers.numpy(), np.asarray(js.grippers),
+                               atol=1e-5)
+    np.testing.assert_allclose(ts.qpos7.numpy(), np.asarray(js.qpos7),
+                               atol=1e-4)
+    np.testing.assert_array_equal(ts.sm.telemetry.numpy()[:, :3],
+                                  np.asarray(js.sm.telemetry)[:, :3])
+    assert tev.telemetry()["patch_escapes"].sum() == 0
+    np.testing.assert_allclose(tev.particle_states(), jev.particle_states(),
+                               atol=5e-5)
+
+    j_out = jev.render()
+    t_out = tev.render()
+    for (name, jv), tv in zip((("fixed rgb", j_out[0]),
+                               ("fixed depth", j_out[1]),
+                               ("wrist rgb", j_out[2]),
+                               ("wrist depth", j_out[3])), t_out):
+        jv, tv = np.asarray(jv), tv.numpy()
+        assert tv.shape == jv.shape, name
+        if "rgb" in name:
+            assert jv.max() > 0.05, name       # the frame shows the scene
+            np.testing.assert_allclose(tv, jv, atol=2e-3, err_msg=name)
+        else:
+            flips = int((np.abs(tv - jv) > 1e-2).sum())
+            assert flips <= max(5, int(2e-4 * tv.size)), (name, flips)
+    np.testing.assert_allclose(tev.state.qpos7.numpy(),
+                               np.asarray(jev.state.qpos7), atol=1e-4)
+    assert tev.render_drops() == {"fixed_dropped_tiles": 0,
+                                  "fixed_dropped_pairs": 0,
+                                  "fixed_binning_dropped": 0,
+                                  "wrist_binning_dropped": 0}
+    obs = tev.observations()
+    assert obs["observation.state"].shape == (len(EPISODES), 8)
+    assert obs["images"].shape == (len(EPISODES), 1, 3, 64, 128)
+    scenes = tev.compose_scenes()
+    assert scenes["means3D"].shape[1] == scenes["shs"].shape[1]

@@ -1,0 +1,75 @@
+"""The port stands alone: it never imports JAX or the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+import ast
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "real2sim_eval_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "real2sim_eval_tpu")
+
+
+def port_files():
+    return sorted(p for p in PORT.rglob("*.py")
+                  if "_build" not in p.parts) + [REPO / "chip_smoke.py"]
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, real2sim_eval_tpu_torch, "
+            "real2sim_eval_tpu_torch.parallel, real2sim_eval_tpu_torch.convert, "
+            "real2sim_eval_tpu_torch.testing, real2sim_eval_tpu_torch.ext\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(','.join(bad))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True)
+    assert out.stdout.strip() == "", out.stdout
+
+
+def forbidden_module(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", port_files(), ids=lambda p: p.name)
+def test_no_port_file_names_jax_or_the_jax_package(path):
+    """No import statement, and no module-name string (an importlib or
+    __import__ argument), names JAX or the JAX package. A file path such
+    as the "replaces" field of chip_smoke.py's kernel line is data."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            names = re.findall(r"^[\w.]+$", node.value)
+        else:
+            continue
+        for name in names:
+            assert not forbidden_module(name), (path, name)
+
+
+def test_entry_points_need_the_card_unless_asked(monkeypatch):
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.physics import PhysicsOptions
+    from real2sim_eval_tpu_torch.physics.fused_step import make_fused_step_fn
+    from real2sim_eval_tpu_torch.renderer import Camera, rasterize_batch
+    from real2sim_eval_tpu_torch.utils import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedEvaluator(None, [0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_fused_step_fn(PhysicsOptions())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rasterize_batch([(Camera(128, 64, 60.0, 60.0, 64.0, 32.0),
+                          torch.eye(4)[None])],
+                        {"means3D": torch.zeros((1, 1, 3))}, 0)
+    assert resolve_device("cpu").type == "cpu"
