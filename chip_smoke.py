@@ -5,14 +5,17 @@
 Builds the port's CUDA kernels from ``real2sim_eval_tpu_torch/csrc`` (into
 ``real2sim_eval_tpu_torch/_build``), holds each kernel against its plain
 PyTorch version on the card, then drives the flagship batched evaluation
-(64 lockstep envs, 130,120 gaussians per env, three 848x480 cameras, 667
-spring-mass substeps per control step) through ``BatchedEvaluator`` and
-reports its timings, a stage breakdown of one step and render, and each
-kernel's time beside its bound at the flagship's shapes. Every line of
-standard output is one JSON object (the first holds the card's
-``nvidia-smi`` name and power limit); the last line is
-``{"ok": true, "device": {...}}``. Any failed phase raises and exits
-non-zero without that line; so does a machine without a CUDA device.
+(64 lockstep envs, 130,120 gaussians per env, two fixed and one wrist
+848x480 camera, 667 spring-mass substeps per control step) through
+``BatchedEvaluator`` on its default render, the incremental one (dirty
+tiles of the fixed cameras by the sort merge and K2, the wrist camera
+through the pre-cull rules and K1), and again with the stream merge (K6).
+It checks that the render paths agree, and reports timings, a stage
+breakdown of one step and render, and each kernel's time beside its bound
+at the flagship's shapes. Every line of standard output is one JSON object
+(the first holds the card's ``nvidia-smi`` name and power limit); the last
+line is ``{"ok": true, "device": {...}}``. Any failed phase raises and
+exits non-zero without that line; so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ B_FLAGSHIP = 64
 N_TABLE = 99000
 N_OBJ_DENSE = 30000
 TIMED_STEPS = 20
+TIMED_STEPS_STREAM = 5
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
 # operations/s outside the tensor cores, for the kernels' least times
 PEAK_BYTES_S = 3.35e12
@@ -43,6 +47,10 @@ K1_OPS_PER_EVAL = 20
 K3_OPS = {"spring_slot": 30, "particle": 30, "self_slot": 45,
           "contact_base": 80, "contact_query": 60}
 RGB_TOL = 2e-3
+# the full-pipeline branch composes the scene in another gaussian order
+# ([object, meshes, table] vs [dynamic; static]), so only equal-depth ties
+# may differ from the incremental branch (tests/test_incremental.py:306)
+BRANCH_RGB_TOL = 1e-5
 # K3 against its plain version, per case: max |x| (m), max |v| (m/s) and
 # the largest gap between the ropes' centres of mass (m). Each gate is a
 # small multiple of the gap measured on an H100 (PERF.md, Findings);
@@ -68,6 +76,14 @@ K3_MUST_CATCH = {"flagship": ("no_op", "no_springs"),
                  "grasp": ("no_op", "no_springs"),
                  "loop": ("no_op", "no_springs", "no_self_collision")}
 DEVICE = "cuda"
+
+
+def render_off():
+    """The full-pipeline render: for the checks that build an evaluator
+    only for its scene or its controls (no static frames to build)."""
+    from real2sim_eval_tpu_torch.renderer import RasterConfig
+
+    return RasterConfig(incremental="off")
 
 
 def fail(msg: str) -> None:
@@ -163,22 +179,23 @@ def composite_both(pairs, starts, ends, n_tx, n_ty, chunk_inst=16):
     return rgb_k, dep_k, rgb_p, dep_p, t_plain
 
 
-def pixel_pair_walks(pairs, starts, ends, n_tx: int, chunk_inst=16) -> int:
+def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
+                     chunk: int = 16 * 420) -> int:
     """Sum over pixels of the pairs each pixel blends before it is done,
     the pair that finishes it included: the compositor's work on this
-    input, whatever order a kernel does it in. Same tests as
-    ``tile_kernel.composite_tiles_plain``."""
+    input, whatever order a kernel does it in. Tile ``tiles[g]`` walks
+    pairs[starts[g]:ends[g]] (flat lists). Same tests as
+    ``tile_kernel._blend_tiles_plain``."""
     import torch
 
     from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
 
     dev = pairs.device
-    n_tiles = starts.shape[1]
     total = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(0, starts.shape[0], chunk_inst):
-        s = starts[i:i + chunk_inst].reshape(-1).long()
-        e = ends[i:i + chunk_inst].reshape(-1).long()
-        t = torch.arange(s.shape[0], device=dev) % n_tiles
+    for i in range(0, starts.shape[0], chunk):
+        s = starts[i:i + chunk].long()
+        e = ends[i:i + chunk].long()
+        t = tiles[i:i + chunk].long()
         px = (((t % n_tx) * tk.TILE_W)[:, None, None]
               + torch.arange(tk.TILE_W, device=dev)[None, None, :]).float()
         py = (((t // n_tx) * tk.TILE_H)[:, None, None]
@@ -203,13 +220,26 @@ def pixel_pair_walks(pairs, starts, ends, n_tx: int, chunk_inst=16) -> int:
     return int(total)
 
 
-def k1_bound_ms(pairs, starts, rgb, walks: int) -> tuple[float, str]:
-    n_bytes = (pairs.numel() * 4 + 2 * starts.numel() * 4
-               + rgb.numel() * 4 * 4 // 3)
-    n_ops = float(walks) * K1_OPS_PER_EVAL
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+def bound_ms(n_bytes: float, walks: int) -> tuple[float, str]:
+    """Least time of a compositor: bytes over the HBM rate or its blends'
+    f32 operations over the f32 rate, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = float(walks) * K1_OPS_PER_EVAL / PEAK_F32_OPS_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound_ms(pairs, starts, rgb, walks: int) -> tuple[float, str]:
+    return bound_ms(pairs.numel() * 4 + 2 * starts.numel() * 4
+                    + rgb.numel() * 4 * 4 // 3, walks)
+
+
+def sparse_bound_ms(rows_read: int, n_tables: int, n_dirty: int,
+                    walks: int) -> tuple[float, str]:
+    """K2/K6: the pair rows read (10 f32 each), the dirty-list tables (i32)
+    and the dirty tiles written (rgb + depth, 8x128 f32 each)."""
+    return bound_ms(rows_read * 40 + n_tables * n_dirty * 4
+                    + n_dirty * 8 * 128 * 4 * 4, walks)
 
 
 def k3_bound_ms(opts, tab, state) -> tuple[float, str]:
@@ -245,7 +275,7 @@ def check_k1_small():
 
     a = make_flagship_assets(batch=1, n_table=15000, n_obj_dense=3880,
                              device=DEVICE)
-    ev = BatchedEvaluator(a, [0], device=DEVICE)
+    ev = BatchedEvaluator(a, [0], device=DEVICE, raster_config=render_off())
     scenes, _ = ev.compose(ev.state, dc_only=True)
     cam, w2c = ev._fixed_cams[0]
     pre = preprocess_gaussians(cam, torch.as_tensor(w2c, device=DEVICE)[None],
@@ -374,7 +404,8 @@ def check_k3_grasp():
     B, openness = 8, 0.4
     a = make_flagship_assets(batch=B, n_table=1000, n_obj_dense=0,
                              device=DEVICE)
-    ev = BatchedEvaluator(a, list(range(B)), device=DEVICE)
+    ev = BatchedEvaluator(a, list(range(B)), device=DEVICE,
+                          raster_config=render_off())
     g = ev.state.grippers.clone()
     # the finger pads reach 0.14 m below the eef: put their lower end 1 cm
     # under a particle 3/8 along the rope
@@ -416,7 +447,7 @@ def k3_loop_case(substeps: int, B: int = 8):
                              device=DEVICE)
     opts = dataclasses.replace(a.opts, num_substeps=substeps)
     ev = BatchedEvaluator(dataclasses.replace(a, opts=opts), list(range(B)),
-                          device=DEVICE)
+                          device=DEVICE, raster_config=render_off())
     # the rest rope in its own frame: arclength u along it, offsets y, z
     rest = a.params.rest_x.double()
     ax = rest[-1] - rest[0]
@@ -486,40 +517,92 @@ def check_reference():
         fail("tile pipeline disagrees with the dense reference")
 
 
+def check_k2_k6_small():
+    """K2 and K6 against their plain versions on check_k1_small's 848x480
+    scene split into static and dynamic splats (4 envs, both fixed
+    cameras): the kernels' inputs are those of one incremental render.
+    A no-op mutant (the cached frames returned unchanged) must land over
+    the gates."""
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.renderer import RasterConfig, incremental
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+
+    B = 4
+    a = make_flagship_assets(batch=B, n_table=15000, n_obj_dense=3880,
+                             device=DEVICE)
+    # (phase, merge, wrapper, plain version, position of inst_ids)
+    for phase, merge, name, plain, at_inst in (
+            ("k2_check", "sort", "rasterize_tiles_sparse",
+             tk.composite_sparse_plain, 1),
+            ("k6_check", "stream", "rasterize_tiles_sparse_merge",
+             tk.composite_sparse_merge_plain, 2)):
+        ev = BatchedEvaluator(a, list(range(B)), device=DEVICE,
+                              raster_config=RasterConfig(
+                                  incremental="on", merge_kernel=merge))
+        seen, undo = capture(incremental, name)
+        try:
+            ev.render()
+        finally:
+            undo()
+        args = seen["args"]
+        rgb_k, dep_k = getattr(tk, name)(*args)
+        rgb_p, dep_p = plain(*args)
+        rgb_m, dep_m = tk.copy_frames(args[-5], args[-4])
+        limit = flips_limit(dep_k.numel())
+        out = {"phase": phase, "envs": B, "cameras": 2,
+               "dirty_tiles": int(args[at_inst].numel()),
+               "max_abs_rgb": float((rgb_k - rgb_p).abs().max()),
+               "depth_flips": depth_flips(dep_k, dep_p),
+               "rgb_tol": RGB_TOL, "flips_limit": limit,
+               "mutant_no_op": {
+                   "max_abs_rgb": float((rgb_m - rgb_p).abs().max()),
+                   "depth_flips": depth_flips(dep_m, dep_p)}}
+        emit(out)
+        if out["max_abs_rgb"] > RGB_TOL or out["depth_flips"] > limit:
+            fail(f"{phase}: the kernel disagrees with its plain version")
+        mut = out["mutant_no_op"]
+        if mut["max_abs_rgb"] <= RGB_TOL and mut["depth_flips"] <= limit:
+            fail(f"{phase}: a no-op kernel would pass the gates")
+
+
 # ---------------------------------------------------------------------------
-# the flagship main path
+# the flagship paths
 # ---------------------------------------------------------------------------
 
 
-def run_flagship():
+def flagship_actions():
+    import torch
+
+    rot = np.diag([1.0, -1.0, -1.0]).reshape(-1)
+    return torch.tensor(
+        np.tile(np.concatenate([[0.2, 0.0, 0.3], rot, [1.0]]),
+                (B_FLAGSHIP, 1)), dtype=torch.float32, device=DEVICE)
+
+
+def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
+    """One flagship path: a warm-up step and render, then ``steps`` timed
+    steps and renders with the launch counts set to 0 just before and read
+    just after. Fails on a drop, on bad frames, or unless each kernel in
+    ``kernels`` launched at least once per timed step."""
     import torch
 
     from real2sim_eval_tpu_torch import ext
-    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
-    from real2sim_eval_tpu_torch.testing import make_flagship_assets
-
-    t0 = time.perf_counter()
-    a = make_flagship_assets(batch=B_FLAGSHIP, n_table=N_TABLE,
-                             n_obj_dense=N_OBJ_DENSE, device=DEVICE)
-    ev = BatchedEvaluator(a, list(range(B_FLAGSHIP)), device=DEVICE)
-    setup_s = time.perf_counter() - t0
-    rot = np.diag([1.0, -1.0, -1.0]).reshape(-1)
-    actions = torch.tensor(
-        np.tile(np.concatenate([[0.2, 0.0, 0.3], rot, [1.0]]),
-                (B_FLAGSHIP, 1)), dtype=torch.float32, device=DEVICE)
-    n_gauss = int(ev.compose_scenes()["means3D"].shape[1])
 
     ev.step(actions)                      # warm-up: allocator, first calls
     ev.render()
     sync()
     torch.cuda.reset_peak_memory_stats()
     ext.reset_launch_counts()
-    phys, rend = [], []
-    for _ in range(TIMED_STEPS):
+    phys, rend, dirty, merged, kept = [], [], [], [], []
+    for _ in range(steps):
         ms, _ = time_host(lambda: ev.step(actions))
         phys.append(ms)
         ms, frames = time_host(ev.render)
         rend.append(ms)
+        dirty.append(ev.render_telemetry[0][..., 0])
+        merged.append(ev.render_stats.get("merged_pairs", 0))
+        kept.append(ev.render_stats.get("wrist_static_blocks"))
     launches = dict(ext.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -532,14 +615,30 @@ def run_flagship():
     shapes_ok = (tuple(ims.shape) == (B_FLAGSHIP, 2, 3, 480, 848)
                  and tuple(wims.shape) == (B_FLAGSHIP, 1, 3, 480, 848))
     total = float(np.mean(phys) + np.mean(rend))
-    out = {"phase": "flagship", "envs": B_FLAGSHIP, "gaussians_per_env": n_gauss,
+    dirty = torch.stack(dirty).float()               # (steps, n_cams, B)
+    kept = [k for k in kept if k is not None]
+    kept = torch.stack(kept).float() if kept else None
+    out = {"phase": phase, "envs": B_FLAGSHIP,
+           "gaussians_per_env": int(ev.compose_scenes()["means3D"].shape[1]),
            "cameras": "2 fixed + 1 wrist, 848x480",
-           "substeps": a.opts.num_substeps, "timed_steps": TIMED_STEPS,
+           "raster_config": dataclasses.asdict(ev.raster_config),
+           "incremental": ev.incremental,
+           "substeps": ev.assets.opts.num_substeps, "timed_steps": steps,
            "setup_s": setup_s,
            "physics_ms": float(np.mean(phys)), "render_ms": float(np.mean(rend)),
            "total_ms": total, "env_steps_per_s": B_FLAGSHIP / (total / 1e3),
            "physics_ms_each": phys, "render_ms_each": rend,
            "max_memory_allocated_bytes": int(peak),
+           "dirty_tiles_per_camera": {
+               "mean": dirty.mean(dim=(0, 2)).tolist(),
+               "max": dirty.amax(dim=(0, 2)).tolist(),
+               "tiles": 60 * 7},
+           "merged_pairs_per_render": {"mean": float(np.mean(merged)),
+                                       "max": int(np.max(merged))},
+           "wrist_cull": ev.wrist_cull,
+           "wrist_static_blocks_kept": (
+               None if kept is None
+               else {"mean": float(kept.mean()), "max": int(kept.max())}),
            "render_drops": drops, "physics_telemetry": tele,
            "frames_finite": finite, "frame_shapes_ok": shapes_ok,
            "frame_mean": float(ims.mean()), "launches": launches}
@@ -549,29 +648,159 @@ def run_flagship():
             "contact_particles_dropped")):
         fail(f"budget saturation: {drops} {tele}")
     if not (finite and shapes_ok):
-        fail("flagship frames are not finite or misshapen")
-    for name, n in launches.items():
-        if n < 1:
-            fail(f"the main path never launched {name}")
+        fail(f"{phase} frames are not finite or misshapen")
+    for name in kernels:
+        if launches[name] < steps:
+            fail(f"{phase}: {name} launched {launches[name]} times in "
+                 f"{steps} steps")
+    return launches, out
+
+
+def run_flagship():
+    """The default path: incremental render, sort merge, pre-cull auto."""
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+
+    t0 = time.perf_counter()
+    a = make_flagship_assets(batch=B_FLAGSHIP, n_table=N_TABLE,
+                             n_obj_dense=N_OBJ_DENSE, device=DEVICE)
+    ev = BatchedEvaluator(a, list(range(B_FLAGSHIP)), device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    if not ev.incremental:
+        fail("the flagship does not take the incremental branch")
+    actions = flagship_actions()
+    launches, out = run_path(
+        "flagship", ev, actions, TIMED_STEPS,
+        ("spring_mass_step", "tile_sparse", "tile_composite"), setup_s)
     return ev, actions, launches, out
 
 
-def stage_breakdown(ev, actions, total_ms: float):
+def run_flagship_stream(ev, actions):
+    """The same flagship with the stream merge (K6), from the state the
+    default path ended in."""
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.renderer import RasterConfig
+
+    t0 = time.perf_counter()
+    ev_s = BatchedEvaluator(ev.assets, list(range(B_FLAGSHIP)), device=DEVICE,
+                            raster_config=RasterConfig(merge_kernel="stream"))
+    ev_s.state = ev.state
+    launches, _ = run_path(
+        "flagship_stream", ev_s, actions, TIMED_STEPS_STREAM,
+        ("spring_mass_step", "tile_sparse_merge", "tile_composite"),
+        time.perf_counter() - t0)
+    return ev_s, launches
+
+
+def render_parity(ev, ev_s):
+    """On one flagship state: the fixed frames of the sort path, the stream
+    path and the full pipeline on the [dynamic; static] scene bitwise; the
+    full-pipeline branch (``incremental="off"``) within BRANCH_RGB_TOL and
+    the flip limit; the culled wrist frames (static and dynamic cull
+    forced on) bitwise the unculled ones in the same scene order. The
+    cull walks the static splats in KD order and the unculled wrist path
+    in scene order, as the JAX package does; those two differ only where
+    splats of the flat table tie in depth, so they are held to the
+    compositor tolerances."""
+    import torch
+
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.renderer import (RasterConfig, precull,
+                                                  rasterize_batch)
+    from real2sim_eval_tpu_torch.renderer.camera import wrist_w2c
+    from real2sim_eval_tpu_torch.utils import transforms as tf
+
+    st = ev.state
+    ev_off = BatchedEvaluator(ev.assets, list(range(B_FLAGSHIP)),
+                              device=DEVICE,
+                              raster_config=RasterConfig(incremental="off"))
+    outs = {}
+    for name, e in (("sort", ev), ("stream", ev_s), ("off", ev_off)):
+        e.state = st
+        outs[name] = e.render()
+    B = B_FLAGSHIP
+    dyn, _ = ev.compose_dyn(st, dc_only=ev.sh_deg == 0)
+
+    def with_static(static):
+        return {k: torch.cat([dyn[k], static[k][None].expand(
+            (B,) + static[k].shape)], dim=1) for k in dyn}
+
+    fixed = [(cam, torch.as_tensor(w2c, device=DEVICE)[None].expand(B, 4, 4))
+             for cam, w2c in ev._fixed_cams]
+    rgb, depth = rasterize_batch(fixed, with_static(ev._static), ev.sh_deg,
+                                 device=DEVICE)
+    outs["full"] = (rgb.transpose(0, 1), depth.transpose(0, 1))
+
+    def differing(a, b) -> int:
+        return int(((a[0] != b[0]).any(dim=2) | (a[1] != b[1])).sum())
+
+    def close(a, b) -> dict:
+        return {"max_abs_rgb": float((a[0] - b[0]).abs().max()),
+                "depth_flips": depth_flips(a[1], b[1]),
+                "flips_limit": flips_limit(a[1].numel())}
+
+    fixed_diff = {"sort_vs_full": differing(outs["sort"], outs["full"]),
+                  "stream_vs_full": differing(outs["stream"], outs["full"]),
+                  "sort_vs_stream": differing(outs["sort"], outs["stream"])}
+    branch = {"fixed": close(outs["off"][:2], outs["sort"][:2]),
+              "wrist": close(outs["off"][2:], outs["sort"][2:])}
+
+    # the wrist: both culls forced on, against the same scene order unculled
+    dyn_cull = dyn["means3D"].shape[1] >= 16 * precull.BLOCK
+    culled = ev.render_wrist(st, dyn, True, dyn_cull)[:2]
+    st_w = ev._cull_static[0]
+    eef_rot = tf.quat_to_rot(st.grippers[:, 6:10])
+    wrist = [(cam, wrist_w2c(eef2c, st.grippers[:, :3], eef_rot))
+             for cam, eef2c in ev._wrist_cams]
+    rgb, depth = rasterize_batch(wrist, with_static(st_w), ev.sh_deg,
+                                 device=DEVICE)
+    same_order = (rgb.transpose(0, 1), depth.transpose(0, 1))
+    kept = ev.render_stats["wrist_static_blocks"]
+    out = {"phase": "render_parity", "differing_pixels_fixed": fixed_diff,
+           "incremental_vs_full_branch": branch,
+           "branch_rgb_tol": BRANCH_RGB_TOL,
+           "wrist_culled_vs_unculled_differing_pixels":
+               differing(culled, same_order),
+           "wrist_culled_vs_unculled_scene_order": close(
+               culled, ev.render_wrist(st, dyn, False, False)[:2]),
+           "wrist_cull_forced": {
+               "static_blocks_kept_max": int(kept.max()),
+               "static_blocks_total": int(st_w["means3D"].shape[0]
+                                          // precull.BLOCK),
+               "dynamic": dyn_cull}}
+    emit(out)
+    if any(fixed_diff.values()):
+        fail(f"the incremental fixed frames differ: {fixed_diff}")
+    for part in branch.values():
+        if (part["max_abs_rgb"] > BRANCH_RGB_TOL
+                or part["depth_flips"] > part["flips_limit"]):
+            fail(f"the full-pipeline branch disagrees: {branch}")
+    if out["wrist_culled_vs_unculled_differing_pixels"]:
+        fail("the culled wrist frames differ from the unculled ones")
+    part = out["wrist_culled_vs_unculled_scene_order"]
+    if (part["max_abs_rgb"] > RGB_TOL
+            or part["depth_flips"] > part["flips_limit"]):
+        fail(f"the culled wrist frames disagree with the unculled path: "
+             f"{part}")
+
+
+def stage_breakdown(ev, ev_s, actions, total_ms: float):
     """Where a flagship control step and render spend their time.
 
-    One more step and render with a synchronising host timer around each
-    stage (nested stages count inside their parents: the IK runs in the
-    mimic and in compose, the LBS in compose), then one more step and
-    render under ``torch.profiler`` for the device's busy share and its
-    heaviest operations."""
+    One more step and render of the default path, and one more render of
+    the stream path, with a synchronising host timer around each stage
+    (nested stages count inside their parents: the IK runs in the mimic
+    and in compose_dyn, the LBS in compose_dyn, the cache copy in K2/K6,
+    the pre-cull, preprocess, binning and K1 in the wrist pipeline), then
+    one more step and render under ``torch.profiler`` for the device's busy
+    share and its heaviest operations."""
     import torch
 
     from real2sim_eval_tpu_torch.physics import fused_step
-    from real2sim_eval_tpu_torch.renderer import lbs, raster
+    from real2sim_eval_tpu_torch.renderer import (incremental, lbs, precull,
+                                                  raster, tile_kernel)
 
-    acc = {}
-
-    def timer(label):
+    def timer(acc, label):
         def make(orig):
             def wrapper(*args, **kwargs):
                 ms, out = time_host(lambda: orig(*args, **kwargs))
@@ -580,21 +809,40 @@ def stage_breakdown(ev, actions, total_ms: float):
             return wrapper
         return make
 
-    stages = [(ev, "_mimic", "mimic (IK + FK)"), (ev, "_ik", "IK"),
-              (ev, "_env_pre", "grasp + controls"),
-              (fused_step, "freeze", "freezes"),
-              (fused_step, "spring_mass_step", "K3 spring_mass_step"),
-              (ev, "compose", "compose"), (lbs, "interpolate_motions", "LBS"),
-              (raster, "preprocess_gaussians", "preprocess"),
-              (raster, "bin_gaussians", "binning"),
-              (raster, "rasterize_tiles_batch", "K1 tile_composite")]
-    undo = [patch(obj, name, timer(label)) for obj, name, label in stages]
-    try:
-        step_ms, _ = time_host(lambda: ev.step(actions))
-        render_ms, _ = time_host(ev.render)
-    finally:
-        for u in reversed(undo):
-            u()
+    def stages(e):
+        return [(e, "_mimic", "mimic (IK + FK)"), (e, "_ik", "IK"),
+                (e, "_env_pre", "grasp + controls"),
+                (fused_step, "freeze", "freezes"),
+                (fused_step, "spring_mass_step", "K3 spring_mass_step"),
+                (e, "compose_dyn", "compose_dyn"),
+                (lbs, "interpolate_motions", "LBS"),
+                (incremental, "bin_dynamic", "dynamic preprocess + binning"),
+                (incremental, "merge_segments", "merge (sort)"),
+                (tile_kernel, "copy_frames", "cache copy"),
+                (incremental, "rasterize_tiles_sparse",
+                 "K2 tile_sparse (incl. cache copy)"),
+                (incremental, "rasterize_tiles_sparse_merge",
+                 "K6 tile_sparse_merge (incl. cache copy)"),
+                (e, "render_wrist", "wrist pipeline"),
+                (precull, "cull_static_blocks", "precull static"),
+                (precull, "cull_dynamic_blocks", "precull dynamic"),
+                (raster, "preprocess_gaussians", "wrist preprocess"),
+                (raster, "bin_gaussians", "wrist binning"),
+                (raster, "rasterize_tiles_batch", "K1 tile_composite")]
+
+    def timed(e, acc, fn):
+        undo = [patch(obj, name, timer(acc, label))
+                for obj, name, label in stages(e)]
+        try:
+            return time_host(fn)[0]
+        finally:
+            for u in reversed(undo):
+                u()
+
+    acc, acc_s = {}, {}
+    step_ms = timed(ev, acc, lambda: ev.step(actions))
+    render_ms = timed(ev, acc, ev.render)
+    stream_render_ms = timed(ev_s, acc_s, ev_s.render)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -616,7 +864,8 @@ def stage_breakdown(ev, actions, total_ms: float):
                 for e in rows[:n]]
 
     emit({"phase": "breakdown", "step_ms": step_ms, "render_ms": render_ms,
-          "stages_ms": acc, "profiled_wall_ms": wall_ms,
+          "stages_ms": acc, "stream_render_ms": stream_render_ms,
+          "stream_render_stages_ms": acc_s, "profiled_wall_ms": wall_ms,
           "device_ms": device_ms,
           # over the unprofiled flagship step + render (the profiler slows
           # the host, not the device)
@@ -624,25 +873,33 @@ def stage_breakdown(ev, actions, total_ms: float):
           "top_kernels_ms": top(kernels, 8), "top_ops_ms": top(ops, 10)})
 
 
-def measure_kernels(ev, actions, launches):
-    """Each kernel at the shapes the main path gives it: its inputs are
-    captured from one more flagship step and render, then the kernel, its
-    plain version and the least time the card could take are measured."""
+def measure_kernels(ev, ev_s, actions, launches, launches_s):
+    """Each kernel at the shapes the main paths give it: its inputs are
+    captured from one more flagship step and render (K3, K1, K2) and one
+    more stream render (K6), then the kernel, its plain version and the
+    least time the card could take are measured. K2's and K6's times are
+    of the kernel alone, into preallocated frames (no cache copy)."""
+    import torch
+
+    from real2sim_eval_tpu_torch import ext
     from real2sim_eval_tpu_torch.physics import fused_step
     from real2sim_eval_tpu_torch.physics import spring_mass as sm
-    from real2sim_eval_tpu_torch.renderer import raster
-    from real2sim_eval_tpu_torch.renderer.tile_kernel import \
-        rasterize_tiles_batch
+    from real2sim_eval_tpu_torch.renderer import incremental, raster
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
 
     k3_seen, undo3 = capture(fused_step, "spring_mass_step")
     k1_seen, undo1 = capture(raster, "rasterize_tiles_batch")
+    k2_seen, undo2 = capture(incremental, "rasterize_tiles_sparse")
+    k6_seen, undo6 = capture(incremental, "rasterize_tiles_sparse_merge")
     try:
         ev.step(actions)
         ev.render()
+        ev_s.render()
     finally:
-        undo3()
-        undo1()
+        for u in (undo6, undo2, undo1, undo3):
+            u()
     sync()
+    lib = ext.load()
 
     opts, tab, state = k3_seen["args"]
     k3_ms = time_cuda(lambda: fused_step.spring_mass_step(opts, tab, state), 3)
@@ -658,11 +915,13 @@ def measure_kernels(ev, actions, launches):
           "bound_by": k3_by, "library_ms": None}
 
     pairs, starts, ends, n_tx, n_ty = k1_seen["args"][:5]
-    k1_ms = time_cuda(lambda: rasterize_tiles_batch(pairs, starts, ends, n_tx,
-                                                    n_ty), 10)
+    k1_ms = time_cuda(lambda: tk.rasterize_tiles_batch(pairs, starts, ends,
+                                                       n_tx, n_ty), 10)
     rgb_k, dep_k, rgb_p, dep_p, k1_plain_ms = composite_both(
         pairs, starts, ends, n_tx, n_ty)
-    walks = pixel_pair_walks(pairs, starts, ends, n_tx)
+    tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
+    walks = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
+                             tiles, n_tx)
     k1_bound, k1_by = k1_bound_ms(pairs, starts, rgb_k, walks)
     k1 = {"name": "tile_composite", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/tile_composite.cu",
@@ -671,19 +930,82 @@ def measure_kernels(ev, actions, launches):
           "max_abs_err": float((rgb_k - rgb_p).abs().max()),
           "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
           "bound_by": k1_by, "library_ms": None}
-    flips = depth_flips(dep_k, dep_p)
-    emit({"phase": "kernel_inputs",
-          "tile_composite": {"instances": int(starts.shape[0]),
-                             "tiles": int(starts.numel()),
-                             "pairs": int(pairs.shape[1]),
-                             "pixel_pair_blends": walks,
-                             "depth_flips": flips},
-          "spring_mass_step": {
-              "envs": int(state.x.shape[0]), "particles": int(state.x.shape[1]),
-              "neighbour_slots": int(tab.nbr_k.shape[1])}})
-    if k1["max_abs_err"] > RGB_TOL or flips > flips_limit(dep_k.numel()):
-        fail(f"K1 disagrees at the main path's shapes: {k1}")
-    return [k3, k1]
+    flips = {"tile_composite": depth_flips(dep_k, dep_p)}
+    limits = {"tile_composite": flips_limit(dep_k.numel())}
+    inputs = {"tile_composite": {"instances": int(starts.shape[0]),
+                                 "tiles": int(starts.numel()),
+                                 "pairs": int(pairs.shape[1]),
+                                 "pixel_pair_blends": walks}}
+
+    args2 = k2_seen["args"]
+    m_pairs, inst, tile, m_st, m_en, rgb_c, dep_c, ntx, nty, bg = args2
+    rgb_o, dep_o = tk.copy_frames(rgb_c, dep_c)
+    k2_ms = time_cuda(lambda: lib.tile_sparse(
+        m_pairs, inst, tile, m_st, m_en, ntx, nty, *bg, rgb_o, dep_o), 10)
+    rgb_k, dep_k = tk.rasterize_tiles_sparse(*args2)
+    k2_plain_ms, (rgb_p, dep_p) = time_host(
+        lambda: tk.composite_sparse_plain(*args2))
+    walks = pixel_pair_walks(m_pairs, m_st, m_en, tile, ntx)
+    rows = int((m_en - m_st).sum())
+    k2_bound, k2_by = sparse_bound_ms(rows, 4, int(inst.numel()), walks)
+    k2 = {"name": "tile_sparse", "route": "cuda",
+          "source": "real2sim_eval_tpu_torch/csrc/tile_sparse.cu",
+          "replaces": "real2sim_eval_tpu/renderer/tile_kernel.py:176",
+          "launches": launches["tile_sparse"],
+          "max_abs_err": float((rgb_k - rgb_p).abs().max()),
+          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+          "bound_by": k2_by, "library_ms": None}
+    flips["tile_sparse"] = depth_flips(dep_k, dep_p)
+    limits["tile_sparse"] = flips_limit(dep_k.numel())
+    inputs["tile_sparse"] = {"instances": int(rgb_k.shape[0]),
+                             "dirty_tiles": int(inst.numel()),
+                             "merged_pairs": rows,
+                             "pixel_pair_blends": walks}
+
+    args6 = k6_seen["args"]
+    data_s, data_d, inst, tile, ss, se, ds, de, rgb_c, dep_c = args6[:10]
+    rgb_o, dep_o = tk.copy_frames(rgb_c, dep_c)
+    k6_ms = time_cuda(lambda: lib.tile_sparse_merge(
+        data_s, data_d, inst, tile, ss, se, ds, de, ntx, nty, *bg, rgb_o,
+        dep_o), 10)
+    rgb_k, dep_k = tk.rasterize_tiles_sparse_merge(*args6)
+    k6_plain_ms, (rgb_p, dep_p) = time_host(
+        lambda: tk.composite_sparse_merge_plain(*args6))
+    merged, m_st, m_en = tk.merge_segments(data_s, ss, se, data_d, ds, de)
+    # the merged order of K6 is K2's: K2 over the same merge, bitwise
+    rgb_2, dep_2 = tk.rasterize_tiles_sparse(merged, inst, tile, m_st, m_en,
+                                             rgb_c, dep_c, ntx, nty, bg)
+    walks = pixel_pair_walks(merged, m_st, m_en, tile, ntx)
+    rows = int((se - ss).sum() + (de - ds).sum())
+    k6_bound, k6_by = sparse_bound_ms(rows, 6, int(inst.numel()), walks)
+    k6 = {"name": "tile_sparse_merge", "route": "cuda",
+          "source": "real2sim_eval_tpu_torch/csrc/tile_sparse_merge.cu",
+          "replaces": "real2sim_eval_tpu/renderer/tile_kernel.py:533",
+          "launches": launches_s["tile_sparse_merge"],
+          "max_abs_err": float((rgb_k - rgb_p).abs().max()),
+          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound,
+          "bound_by": k6_by, "library_ms": None}
+    flips["tile_sparse_merge"] = depth_flips(dep_k, dep_p)
+    limits["tile_sparse_merge"] = flips_limit(dep_k.numel())
+    k6_vs_k2 = int(((rgb_k != rgb_2).any(dim=1) | (dep_k != dep_2)).sum())
+    inputs["tile_sparse_merge"] = {"instances": int(rgb_k.shape[0]),
+                                   "dirty_tiles": int(inst.numel()),
+                                   "merged_pairs": rows,
+                                   "pixel_pair_blends": walks,
+                                   "differing_pixels_vs_k2": k6_vs_k2}
+    inputs["spring_mass_step"] = {
+        "envs": int(state.x.shape[0]), "particles": int(state.x.shape[1]),
+        "neighbour_slots": int(tab.nbr_k.shape[1])}
+    emit({"phase": "kernel_inputs", "depth_flips": flips,
+          "flips_limits": limits, **inputs})
+    kernels = [k3, k1, k2, k6]
+    for k in kernels[1:]:
+        if (k["max_abs_err"] > RGB_TOL
+                or flips[k["name"]] > limits[k["name"]]):
+            fail(f"{k['name']} disagrees at the main path's shapes: {k}")
+    if k6_vs_k2:
+        fail("K6 and K2 disagree on the same merge")
+    return kernels
 
 
 def main() -> int:
@@ -706,15 +1028,18 @@ def main() -> int:
     t0 = time.perf_counter()
     ext.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "flags": list(ext.CUDA_FLAGS)})
+          "flags": list(ext.CUDA_FLAGS), "sources": list(ext.SOURCES)})
 
     check_k1_small()
+    check_k2_k6_small()
     check_k3_grasp()
     check_k3_loop()
     check_reference()
     ev, actions, launches, flagship = run_flagship()
-    stage_breakdown(ev, actions, flagship["total_ms"])
-    kernels = measure_kernels(ev, actions, launches)
+    ev_s, launches_s = run_flagship_stream(ev, actions)
+    render_parity(ev, ev_s)
+    stage_breakdown(ev, ev_s, actions, flagship["total_ms"])
+    kernels = measure_kernels(ev, ev_s, actions, launches, launches_s)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -7,6 +7,8 @@
 #include <torch/extension.h>
 
 #include <algorithm>
+#include <initializer_list>
+#include <utility>
 
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -23,20 +25,16 @@ void check(const torch::Tensor& t, const char* name, at::ScalarType dtype) {
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
-void tile_composite(torch::Tensor pairs, torch::Tensor starts,
-                    torch::Tensor ends, int64_t n_tiles_x, int64_t n_tiles_y,
-                    double bg0, double bg1, double bg2, torch::Tensor rgb,
-                    torch::Tensor depth) {
-  check(pairs, "pairs", at::kFloat);
-  check(starts, "tile_starts", at::kInt);
-  check(ends, "tile_ends", at::kInt);
+void check_table(const torch::Tensor& t, const char* name) {
+  check(t, name, at::kFloat);
+  TORCH_CHECK(t.dim() == 2 && t.size(0) == 10, name, " must be (10, P)");
+}
+
+// rgb (I, 3, 8 * n_tiles_y, 128 * n_tiles_x) and depth (I, Hp, Wp), f32
+void check_frames(const torch::Tensor& rgb, const torch::Tensor& depth,
+                  int64_t n_inst, int64_t n_tiles_x, int64_t n_tiles_y) {
   check(rgb, "rgb", at::kFloat);
   check(depth, "depth", at::kFloat);
-  TORCH_CHECK(pairs.dim() == 2 && pairs.size(0) == 10, "pairs must be (10, P)");
-  TORCH_CHECK(starts.dim() == 2 && starts.size(1) == n_tiles_x * n_tiles_y &&
-                  ends.sizes() == starts.sizes(),
-              "tile_starts and tile_ends must be (I, n_tiles_x * n_tiles_y)");
-  const int64_t n_inst = starts.size(0);
   const int64_t h_pad = 8 * n_tiles_y, w_pad = 128 * n_tiles_x;
   TORCH_CHECK(rgb.dim() == 4 && rgb.size(0) == n_inst && rgb.size(1) == 3 &&
                   rgb.size(2) == h_pad && rgb.size(3) == w_pad,
@@ -44,12 +42,84 @@ void tile_composite(torch::Tensor pairs, torch::Tensor starts,
   TORCH_CHECK(depth.dim() == 3 && depth.size(0) == n_inst &&
                   depth.size(1) == h_pad && depth.size(2) == w_pad,
               "depth must be (I, 8 * n_tiles_y, 128 * n_tiles_x)");
+}
+
+// the (n_dirty,) i32 tables of a dirty-tile list, all of one length
+int64_t check_dirty_list(std::initializer_list<std::pair<const torch::Tensor*,
+                                                         const char*>> ts) {
+  const int64_t n = ts.begin()->first->numel();
+  for (const auto& p : ts) {
+    check(*p.first, p.second, at::kInt);
+    TORCH_CHECK(p.first->dim() == 1 && p.first->size(0) == n, p.second,
+                " must be (n_dirty,) like the other dirty-tile tables");
+  }
+  return n;
+}
+
+void tile_composite(torch::Tensor pairs, torch::Tensor starts,
+                    torch::Tensor ends, int64_t n_tiles_x, int64_t n_tiles_y,
+                    double bg0, double bg1, double bg2, torch::Tensor rgb,
+                    torch::Tensor depth) {
+  check_table(pairs, "pairs");
+  check(starts, "tile_starts", at::kInt);
+  check(ends, "tile_ends", at::kInt);
+  TORCH_CHECK(starts.dim() == 2 && starts.size(1) == n_tiles_x * n_tiles_y &&
+                  ends.sizes() == starts.sizes(),
+              "tile_starts and tile_ends must be (I, n_tiles_x * n_tiles_y)");
+  const int64_t n_inst = starts.size(0);
+  check_frames(rgb, depth, n_inst, n_tiles_x, n_tiles_y);
   const c10::cuda::CUDAGuard guard(pairs.device());
   C10_CUDA_CHECK(tile_composite_launch(
       pairs.data_ptr<float>(), pairs.size(1), starts.data_ptr<int>(),
       ends.data_ptr<int>(), (int)n_inst, (int)n_tiles_x, (int)n_tiles_y,
       (float)bg0, (float)bg1, (float)bg2, rgb.data_ptr<float>(),
       depth.data_ptr<float>(), c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void tile_sparse(torch::Tensor pairs, torch::Tensor inst_ids,
+                 torch::Tensor tile_ids, torch::Tensor starts,
+                 torch::Tensor ends, int64_t n_tiles_x, int64_t n_tiles_y,
+                 double bg0, double bg1, double bg2, torch::Tensor rgb,
+                 torch::Tensor depth) {
+  check_table(pairs, "pairs");
+  const int64_t n_dirty = check_dirty_list(
+      {{&inst_ids, "inst_ids"}, {&tile_ids, "tile_ids"},
+       {&starts, "starts"}, {&ends, "ends"}});
+  check_frames(rgb, depth, rgb.size(0), n_tiles_x, n_tiles_y);
+  const c10::cuda::CUDAGuard guard(pairs.device());
+  C10_CUDA_CHECK(tile_sparse_launch(
+      pairs.data_ptr<float>(), pairs.size(1), inst_ids.data_ptr<int>(),
+      tile_ids.data_ptr<int>(), starts.data_ptr<int>(), ends.data_ptr<int>(),
+      (int)n_dirty, (int)rgb.size(0), (int)n_tiles_x, (int)n_tiles_y,
+      (float)bg0, (float)bg1, (float)bg2, rgb.data_ptr<float>(),
+      depth.data_ptr<float>(), c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void tile_sparse_merge(torch::Tensor data_s, torch::Tensor data_d,
+                       torch::Tensor inst_ids, torch::Tensor tile_ids,
+                       torch::Tensor s_starts, torch::Tensor s_ends,
+                       torch::Tensor d_starts, torch::Tensor d_ends,
+                       int64_t n_tiles_x, int64_t n_tiles_y, double bg0,
+                       double bg1, double bg2, torch::Tensor rgb,
+                       torch::Tensor depth) {
+  check_table(data_s, "static pairs");
+  check_table(data_d, "dynamic pairs");
+  const int64_t n_dirty = check_dirty_list(
+      {{&inst_ids, "inst_ids"}, {&tile_ids, "tile_ids"},
+       {&s_starts, "s_starts"}, {&s_ends, "s_ends"},
+       {&d_starts, "d_starts"}, {&d_ends, "d_ends"}});
+  check_frames(rgb, depth, rgb.size(0), n_tiles_x, n_tiles_y);
+  const c10::cuda::CUDAGuard guard(data_s.device());
+  C10_CUDA_CHECK(tile_sparse_merge_launch(
+      data_s.data_ptr<float>(), data_s.size(1), data_d.data_ptr<float>(),
+      data_d.size(1), inst_ids.data_ptr<int>(), tile_ids.data_ptr<int>(),
+      s_starts.data_ptr<int>(), s_ends.data_ptr<int>(),
+      d_starts.data_ptr<int>(), d_ends.data_ptr<int>(), (int)n_dirty,
+      (int)rgb.size(0), (int)n_tiles_x, (int)n_tiles_y, (float)bg0,
+      (float)bg1, (float)bg2, rgb.data_ptr<float>(), depth.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -196,6 +266,11 @@ void spring_mass_step(
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tile_composite", &tile_composite,
         "Tile compositor over (instance, 8x128 tile) (CUDA)");
+  m.def("tile_sparse", &tile_sparse,
+        "Dirty-tile compositor over a merged pair table, in place (CUDA)");
+  m.def("tile_sparse_merge", &tile_sparse_merge,
+        "Dirty-tile compositor merging static and dynamic segments, in "
+        "place (CUDA)");
   m.def("spring_mass_step", &spring_mass_step,
         "All substeps of one spring-mass control step, one CTA per env "
         "(CUDA)");

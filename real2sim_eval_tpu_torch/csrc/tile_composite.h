@@ -1,4 +1,5 @@
-// C interface of the tile compositor (tile_composite.cu).
+// C interface of the tile compositors: K1 (tile_composite.cu), K2
+// (tile_sparse.cu) and K6 (tile_sparse_merge.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +17,27 @@ cudaError_t tile_composite_launch(const float* pairs, long long n_pairs,
                                   int n_inst, int n_tiles_x, int n_tiles_y,
                                   float bg0, float bg1, float bg2, float* rgb,
                                   float* depth, cudaStream_t stream);
+
+// K2: for each of the n_dirty entries, the tile tile_ids[k] of instance
+// inst_ids[k] is re-composited from pairs[starts[k], ends[k]) into rgb and
+// depth (shaped as for K1); every other pixel is left as it is.
+cudaError_t tile_sparse_launch(const float* pairs, long long n_pairs,
+                               const int* inst_ids, const int* tile_ids,
+                               const int* starts, const int* ends,
+                               int n_dirty, int n_inst, int n_tiles_x,
+                               int n_tiles_y, float bg0, float bg1, float bg2,
+                               float* rgb, float* depth, cudaStream_t stream);
+
+// K6: as K2, but entry k blends the depth merge of the static segment
+// data_s[s_starts[k], s_ends[k]) and the dynamic segment
+// data_d[d_starts[k], d_ends[k]) (both (10, n) f32, depth-sorted), a
+// dynamic pair first on equal depth.
+cudaError_t tile_sparse_merge_launch(
+    const float* data_s, long long n_s, const float* data_d, long long n_d,
+    const int* inst_ids, const int* tile_ids, const int* s_starts,
+    const int* s_ends, const int* d_starts, const int* d_ends, int n_dirty,
+    int n_inst, int n_tiles_x, int n_tiles_y, float bg0, float bg1,
+    float bg2, float* rgb, float* depth, cudaStream_t stream);
 
 #ifdef __cplusplus
 }

@@ -1,0 +1,66 @@
+// Dirty-tile compositor K2: K1's blend over the dirty tiles of a step only.
+//
+// Replaces the TPU Pallas kernel K2 (the JAX package's renderer/
+// tile_kernel.py: rasterize_tiles_sparse and _kernel_sparse).
+//
+// Design: one CTA per entry of a flat list of the step's dirty (instance,
+// tile) pairs, each with its range [start, end) in the merged pair table
+// (static and dynamic pairs of the tile in one depth order, built by
+// renderer/incremental.py). The CTA runs K1's body (tile_blend.cuh) and
+// writes its tile into frames that the wrapper has filled with a copy of
+// the cached static frames; clean tiles are never touched. The list is
+// exact (every tile with a dynamic pair, nothing else), so the TPU kernel's
+// sentinel ids and junk tile row have no counterpart here. An entry whose
+// instance or tile id lies outside the frames is skipped rather than
+// written out of bounds.
+//
+// Bound: as K1, operations (~20 f32 operations and one expf per pixel and
+// pair); on the same pair range K2 is bitwise K1.
+
+#include <cuda_runtime.h>
+
+#include "tile_blend.cuh"
+#include "tile_composite.h"
+
+namespace {
+
+using namespace tile_blend;
+
+__global__ void __launch_bounds__(kThreads)
+tile_sparse_kernel(const float* __restrict__ pairs, long long n_pairs,
+                   const int* __restrict__ inst_ids,
+                   const int* __restrict__ tile_ids,
+                   const int* __restrict__ starts,
+                   const int* __restrict__ ends, int n_inst, int n_tiles_x,
+                   int n_tiles, int h_pad, int w_pad, float bg0, float bg1,
+                   float bg2, float* __restrict__ rgb,
+                   float* __restrict__ depth) {
+  __shared__ float sh[kAttr][kBatch];
+
+  const int k = blockIdx.x;                 // dirty-list entry
+  const int inst = inst_ids[k];
+  const int t = tile_ids[k];
+  if (inst < 0 || inst >= n_inst || t < 0 || t >= n_tiles) return;
+  const int ty = t / n_tiles_x;
+  const int tx = t - ty * n_tiles_x;
+
+  Pixels p;
+  init_pixels(p, tx, ty);
+  blend_range(pairs, n_pairs, starts[k], ends[k], sh, p);
+  store_pixels(p, inst, tx, ty, h_pad, w_pad, bg0, bg1, bg2, rgb, depth);
+}
+
+}  // namespace
+
+extern "C" cudaError_t tile_sparse_launch(
+    const float* pairs, long long n_pairs, const int* inst_ids,
+    const int* tile_ids, const int* starts, const int* ends, int n_dirty,
+    int n_inst, int n_tiles_x, int n_tiles_y, float bg0, float bg1,
+    float bg2, float* rgb, float* depth, cudaStream_t stream) {
+  if (n_dirty == 0) return cudaSuccess;
+  tile_sparse_kernel<<<(unsigned)n_dirty, kThreads, 0, stream>>>(
+      pairs, n_pairs, inst_ids, tile_ids, starts, ends, n_inst, n_tiles_x,
+      n_tiles_x * n_tiles_y, n_tiles_y * kTileH, n_tiles_x * kTileW, bg0,
+      bg1, bg2, rgb, depth);
+  return cudaGetLastError();
+}

@@ -1,7 +1,6 @@
 """Batched episode evaluation: B envs step and render in lockstep.
 
-Counterpart of the JAX package's parallel/batched.py, on its full-pipeline
-render branch (its ``RasterConfig(incremental="off")``). One control step:
+Counterpart of the JAX package's parallel/batched.py. One control step:
 
   1. the velocity-control mimic: batched IK toward the action pose, a
      clamped joint step, FK of the new pose (``step`` with velocity control);
@@ -9,9 +8,20 @@ render branch (its ``RasterConfig(incremental="off")``). One control step:
   3. the spring-mass step: freezes in PyTorch, then all substeps in the
      CUDA kernel K3 (physics/fused_step.py);
 
-and one render: LBS of the object splats plus robot articulation for every
-env (``compose``), per-camera preprocess and exact binning, then ONE launch
-of the tile compositor K1 over every (env, camera, tile).
+and one render, on one of the JAX package's two branches:
+
+  - incremental (``RasterConfig(incremental="auto")`` on the card, "on"
+    anywhere; the JAX package's flagship branch): LBS of the object splats
+    plus the robot-link rows, one IK (``compose_dyn``); the fixed cameras
+    re-composite only their dirty tiles on top of static frames built once
+    (renderer/incremental.py: sort merge + K2, or K6); the wrist camera
+    runs the full pipeline (K1) on [dynamic; static], the static part (and
+    the dynamic part, where it pays) first culled to the blocks its
+    frustum can see (renderer/precull.py), under the JAX package's rules;
+  - full pipeline (``incremental="off"``, and "auto" on the CPU): LBS plus
+    robot articulation of the whole scene (``compose``), per-camera
+    preprocess and exact binning, then ONE launch of K1 over every (env,
+    camera, tile).
 
 Scene assets come in as ``BatchedAssets`` (see convert.py and testing.py);
 the host-side asset build of the JAX package (envs, loaders) is not part
@@ -31,11 +41,20 @@ from ..physics.fused_step import make_fused_step_fn
 from ..physics.spring_mass import (MeshColliderSet, PhysicsOptions,
                                    SpringMassParams, SpringMassState)
 from ..renderer import lbs as lbs_mod
+from ..renderer import precull as pc
 from ..renderer.camera import Camera, setup_camera, wrist_w2c
+from ..renderer.incremental import build_static_raster, render_incremental
 from ..renderer.raster import RasterConfig, rasterize_batch
 from ..renderer.scene import RobotArticulation
 from ..utils import transforms as tf
 from ..utils.device import resolve_device
+
+
+SPLAT_KEYS = ("means3D", "scales", "rotations", "opacities", "shs")
+# eef offsets (m) of the wrist poses the cull capacity is planned over,
+# beside the init pose (the JAX package's swept_wlist)
+WRIST_SWEEP = ((0, 0, 0.1), (0, 0, 0.2), (0, 0, -0.1), (0.15, 0, 0),
+               (-0.15, 0, 0), (0, 0.15, 0), (0, -0.15, 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +144,77 @@ class BatchedEvaluator:
                 self._fixed_cams + self._wrist_cams}) > 1:
             raise NotImplementedError(
                 "the batched render needs one resolution for all cameras")
+        mask = a.mask.cpu().numpy()
+        self._robot_rows = torch.as_tensor(np.where(mask > 0)[0],
+                                           device=self.device)
+        self._static_rows = torch.as_tensor(np.where(mask <= 0)[0],
+                                            device=self.device)
+        self.render_stats = {}
+        self.wrist_cull = None
+        self.incremental = False
+        self._setup_incremental()
+
+    def _setup_incremental(self):
+        """The JAX package's use-rules for the incremental render
+        (batched.py:358-362) and the wrist pre-cull (batched.py:449-512),
+        and the one-time builds they need: the static frame of every fixed
+        camera and, where the cull may run, the KD-ordered static blocks."""
+        a, rc = self.assets, self.raster_config
+        n_static = (int(self._static_rows.shape[0])
+                    + sum(int(pm["means3D"].shape[0])
+                          for pm in a.mesh_params.values()))
+        self.incremental = (bool(self._fixed_cams) and n_static > 0
+                            and rc.incremental != "off"
+                            and (rc.incremental == "on"
+                                 or self.device.type == "cuda"))
+        if not self.incremental:
+            return
+        scene = self.static_scene()
+        self._cam_static = [(cam, build_static_raster(cam, w2c, scene,
+                                                      self.sh_deg), w2c)
+                            for cam, w2c in self._fixed_cams]
+        if self.sh_deg == 0:
+            scene = dict(scene, shs=scene["shs"][:, :1])
+        self._static = scene
+        self._wrist_flags = (False, False)
+        if (not self._wrist_cams or rc.wrist_precull == "off"
+                or scene["means3D"].shape[0] < 16 * pc.BLOCK):
+            return
+
+        st0 = self.state
+        eef_rot0 = tf.quat_to_rot(st0.grippers[:, 6:10])
+
+        def poses(offset):
+            xyz = st0.grippers[:, :3] + torch.tensor(
+                offset, dtype=torch.float32, device=self.device)
+            return [(cam, wrist_w2c(eef2c, xyz, eef_rot0))
+                    for cam, eef2c in self._wrist_cams]
+
+        init = poses((0.0, 0.0, 0.0))
+        sweep = [cw for off in WRIST_SWEEP for cw in poses(off)]
+        st_w = pc.pad_static_scene(pc.spatial_sort_scene(scene))
+        centers, radii = pc.block_bounds(st_w["means3D"], st_w["scales"])
+        self._cull_static = (st_w, centers, radii)
+        # a capacity near the whole scene wins nothing (the JAX rule)
+        cap = max(pc.plan_static_cull(init, centers, radii),
+                  pc.plan_static_cull(init + sweep, centers, radii,
+                                      margin=1.15))
+        g = int(centers.shape[0])
+        static_on = rc.wrist_precull == "on" or cap < int(0.9 * g)
+        dyn0 = self.compose_dyn(st0, dc_only=True)[0]
+        dyn_cap = g_dyn = None
+        dyn_on = False
+        if static_on and dyn0["means3D"].shape[1] >= 16 * pc.BLOCK:
+            dyn0 = pc.pad_dynamic_scene(dyn0)
+            dyn_cap = max(pc.plan_dynamic_cull(init, dyn0),
+                          pc.plan_dynamic_cull(sweep, dyn0, margin=1.15))
+            g_dyn = int(dyn0["means3D"].shape[1]) // pc.BLOCK
+            dyn_on = rc.wrist_precull == "on" or dyn_cap < int(0.9 * g_dyn)
+        self._wrist_flags = (static_on, dyn_on)
+        self.wrist_cull = {"static": static_on, "cap_blocks": cap,
+                           "total_blocks": g, "dynamic": dyn_on,
+                           "dyn_cap_blocks": dyn_cap,
+                           "dyn_total_blocks": g_dyn}
 
     @property
     def batch_size(self) -> int:
@@ -206,11 +296,10 @@ class BatchedEvaluator:
     # render
     # ------------------------------------------------------------------
 
-    def compose(self, state: BatchedState, dc_only: bool = False):
-        """Full-scene gaussians per env, dict of (B, N, ...) tensors, and
-        the IK arm pose for the current eef."""
+    def _posed_object(self, state: BatchedState):
+        """LBS of the object splats on the particle state: (B, N_obj, 3)
+        means and (B, N_obj, 4) rotations."""
         a = self.assets
-        B = state.rel_pose.shape[0]
         R = state.rel_pose[:, :3, :3]
         t = state.rel_pose[:, :3, 3]
         means = a.obj["means3D"][None] @ R.transpose(-1, -2) + t[:, None]
@@ -220,12 +309,26 @@ class BatchedEvaluator:
         xyz = lbs_mod.interpolate_motions(
             bones, state.sm.x - bones, self.relations, self.weights,
             self.weights_idx, means)
+        return xyz, quats
 
+    def _arm_pose(self, state: BatchedState):
+        """IK arm pose for the current eef (B, 7) and the full joint
+        vector (B, n_dof) the robot splats are posed with."""
         eef_rot = tf.quat_to_rot(state.grippers[:, 6:10])
         target = tf.make_se3(eef_rot, state.grippers[:, :3])
         qpos7 = self._ik(state.qpos7, target)[:, :7]
-        q_full = a.articulation.full_qpos(qpos7,
-                                          state.grippers[:, 13] * 800.0)
+        q_full = self.assets.articulation.full_qpos(
+            qpos7, state.grippers[:, 13] * 800.0)
+        return qpos7, q_full
+
+    def compose(self, state: BatchedState, dc_only: bool = False):
+        """Full-scene gaussians per env in [object, meshes, table] order,
+        dict of (B, N, ...) tensors, and the IK arm pose for the current
+        eef."""
+        a = self.assets
+        B = state.rel_pose.shape[0]
+        xyz, quats = self._posed_object(state)
+        qpos7, q_full = self._arm_pose(state)
         t_means, t_quats = a.articulation.apply(
             q_full, a.table["means3D"], a.table["rotations"], a.mask)
 
@@ -245,6 +348,45 @@ class BatchedEvaluator:
             parts[k].append(shared(a.table[k]))
         return {k: torch.cat(v, dim=1) for k, v in parts.items()}, qpos7
 
+    def compose_dyn(self, state: BatchedState, dc_only: bool = False):
+        """The gaussians that move, per env: the LBS'd object splats, then
+        the articulated robot-link rows of the scan (mask > 0), dict of
+        (B, N_dyn, ...) tensors, and the IK arm pose (one IK call)."""
+        a = self.assets
+        B = state.rel_pose.shape[0]
+        xyz, quats = self._posed_object(state)
+        qpos7, q_full = self._arm_pose(state)
+
+        def shared(v):
+            v = v[:, :1] if (dc_only and v.dim() == 3) else v
+            return v[None].expand((B,) + v.shape)
+
+        parts = {"means3D": [xyz], "rotations": [quats]}
+        for k in ("shs", "opacities", "scales"):
+            parts[k] = [shared(a.obj[k])]
+        rows = self._robot_rows
+        if rows.shape[0]:
+            r_means, r_quats = a.articulation.apply(
+                q_full, a.table["means3D"][rows], a.table["rotations"][rows],
+                a.mask[rows])
+            parts["means3D"].append(r_means)
+            parts["rotations"].append(r_quats)
+            for k in ("shs", "opacities", "scales"):
+                parts[k].append(shared(a.table[k][rows]))
+        return ({k: torch.cat(v, dim=1) if len(v) > 1 else v[0]
+                 for k, v in parts.items()}, qpos7)
+
+    def static_scene(self) -> dict:
+        """The gaussians that never move, (N_s, ...) tensors in [meshes...,
+        mask-0 scan rows] order."""
+        a = self.assets
+        parts = {k: [pm[k] for pm in a.mesh_params.values()]
+                 for k in SPLAT_KEYS}
+        if self._static_rows.shape[0]:
+            for k in SPLAT_KEYS:
+                parts[k].append(a.table[k][self._static_rows])
+        return {k: torch.cat(v, dim=0) for k, v in parts.items()}
+
     def compose_scenes(self):
         """Full-scene gaussians per env (diagnostics / golden checks)."""
         return self.compose(self.state)[0]
@@ -254,8 +396,21 @@ class BatchedEvaluator:
         wrist images, wrist depths) and updates the cached IK qpos. Render
         telemetry lands in ``self.render_telemetry`` as a (fixed, wrist)
         pair: fixed (n_fixed, B, 4) i32 [n_dirty, dropped_tiles,
-        dropped_pairs, binning_dropped], wrist (n_wrist, B) i32."""
+        dropped_pairs, binning_dropped], wrist (n_wrist, B) i32. On the
+        incremental branch ``self.render_stats`` holds the merged pair count
+        and the wrist cull's kept blocks per (wrist camera, env)."""
         st = self.state
+        if self.incremental:
+            dyn, qpos_new = self.compose_dyn(st, dc_only=self.sh_deg == 0)
+            rgb, depth, tele = render_incremental(
+                self._cam_static, dyn, self.sh_deg, config=self.raster_config,
+                stats=self.render_stats)
+            wims, wdepths, wdrops = self.render_wrist(st, dyn,
+                                                      *self._wrist_flags)
+            self.render_telemetry = (tele, wdrops)
+            self.state = st.replace(qpos7=qpos_new)
+            return (rgb.transpose(0, 1), depth.transpose(0, 1), wims,
+                    wdepths)
         B = st.rel_pose.shape[0]
         scenes, qpos_new = self.compose(st, dc_only=self.sh_deg == 0)
         cam_list = [(cam, torch.as_tensor(w2c, device=self.device)[None]
@@ -278,6 +433,55 @@ class BatchedEvaluator:
         self.render_telemetry = (tele, drops[nf:])
         self.state = st.replace(qpos7=qpos_new)
         return ims, depths, wims, wdepths
+
+    def render_wrist(self, state: BatchedState, dyn: dict,
+                     static_cull: bool, dyn_cull: bool):
+        """The wrist cameras of the incremental branch: the full pipeline
+        on [dynamic; static], each part first culled to the blocks the
+        camera can see where asked (one render per camera, since culled
+        scenes differ), else one render of all wrist cameras. ``dyn`` is
+        ``compose_dyn``'s scene. Returns (images (B, n_wrist, 3, H, W),
+        depths, binning drops (n_wrist, B) i32)."""
+        B = state.rel_pose.shape[0]
+        eef_rot = tf.quat_to_rot(state.grippers[:, 6:10])
+        cams = [(cam, wrist_w2c(eef2c, state.grippers[:, :3], eef_rot))
+                for cam, eef2c in self._wrist_cams]
+        if not cams:
+            c = self._fixed_cams[0][0]
+            empty = torch.zeros((B, 0, 3, c.height, c.width),
+                                device=self.device)
+            return (empty, empty[:, :, 0],
+                    torch.zeros((0, B), dtype=torch.int32,
+                                device=self.device))
+        if not static_cull:
+            scenes = {k: torch.cat([dyn[k], self._static[k][None].expand(
+                (B,) + self._static[k].shape)], dim=1) for k in SPLAT_KEYS}
+            rgb, depth, drops = rasterize_batch(
+                cams, scenes, self.sh_deg, config=self.raster_config,
+                return_drops=True, device=self.device)
+            return rgb.transpose(0, 1), depth.transpose(0, 1), drops
+        st_w, centers, radii = self._cull_static
+        dyn_pad = pc.pad_dynamic_scene(dyn) if dyn_cull else dyn
+        outs, kept_s, kept_d = [], [], []
+        for cam, w2c_b in cams:
+            culled, n_s = pc.cull_static_blocks(cam, w2c_b, st_w, centers,
+                                                radii)
+            kept_s.append(n_s)
+            dyn_c = dyn
+            if dyn_cull:
+                dyn_c, n_d = pc.cull_dynamic_blocks(cam, w2c_b, dyn_pad)
+                kept_d.append(n_d)
+            scene = {k: torch.cat([dyn_c[k], culled[k]], dim=1)
+                     for k in SPLAT_KEYS}
+            outs.append(rasterize_batch([(cam, w2c_b)], scene, self.sh_deg,
+                                        config=self.raster_config,
+                                        return_drops=True,
+                                        device=self.device))
+        self.render_stats["wrist_static_blocks"] = torch.stack(kept_s)
+        if kept_d:
+            self.render_stats["wrist_dynamic_blocks"] = torch.stack(kept_d)
+        rgb, depth, drops = (torch.cat(v) for v in zip(*outs))
+        return rgb.transpose(0, 1), depth.transpose(0, 1), drops
 
     def render_drops(self) -> dict:
         """Named drop counters of the last render; any nonzero value means

@@ -29,18 +29,38 @@ from ..utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:
-    """Every camera runs the full pipeline (the JAX package's
-    ``incremental="off"``); the dirty-tile incremental render is not ported
-    yet."""
+    """Render settings, with the JAX package's values.
+
+    ``incremental``: the fixed cameras of ``BatchedEvaluator`` render only
+    the tiles the moving splats touch, on top of a static frame built once
+    (renderer/incremental.py); "auto" turns it on when the evaluator runs
+    on the card, "off" renders every camera with the full pipeline.
+    ``merge_kernel``: how a dirty tile's static and dynamic pairs merge:
+    "sort" (a PyTorch sort, then K2) or "stream" (inside K6).
+    ``wrist_precull``: block frustum cull of the scene for the wrist
+    camera (renderer/precull.py); "auto" culls where the JAX package's
+    evaluator would.
+
+    The JAX package's budgets (``dirty_budget``, ``mix_pairs``,
+    ``merge_mem_budget``, ``auto_budgets``, the pair-buffer factors) and
+    ``pack_payloads`` have no counterpart: the port sizes every buffer from
+    the data, so nothing is ever dropped, and never packs payloads."""
 
     backend: str = "tiles"             # tiles | reference
+    incremental: str = "auto"          # auto | on | off
+    merge_kernel: str = "sort"         # sort | stream
+    wrist_precull: str = "auto"        # auto | on | off
 
     def __post_init__(self):
-        if self.backend not in ("tiles", "reference"):
-            raise ValueError(f"unknown raster backend {self.backend!r}")
+        for name, allowed in (("backend", ("tiles", "reference")),
+                              ("incremental", ("auto", "on", "off")),
+                              ("merge_kernel", ("sort", "stream")),
+                              ("wrist_precull", ("auto", "on", "off"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}")
 
 
-def _bg(bg) -> tuple:
+def bg_tuple(bg) -> tuple:
     return tuple(float(b) for b in torch.as_tensor(bg).reshape(-1).tolist())
 
 
@@ -60,7 +80,7 @@ def rasterize(cam: Camera, w2c, means3d, scales, quats, opacities, shs,
     if config.backend == "reference":
         pre = preprocess_gaussians(cam, w2c, means3d, scales, quats,
                                    opacities, shs, sh_degree)
-        return _composite_reference(cam, pre, _bg(bg))
+        return _composite_reference(cam, pre, bg_tuple(bg))
     scenes = {"means3D": means3d[None], "scales": scales[None],
               "rotations": quats[None], "opacities": opacities[None],
               "shs": shs[None]}
@@ -118,7 +138,8 @@ def rasterize_batch(cam_w2c_list, scenes, sh_degree: int, bg=(0.0, 0.0, 0.0),
         offset += bins["pair_attrs"].shape[1]
     pairs = torch.cat(pair_parts, dim=1)
     rgb, depth = rasterize_tiles_batch(pairs, torch.cat(starts),
-                                       torch.cat(ends), n_tx, n_ty, _bg(bg))
+                                       torch.cat(ends), n_tx, n_ty,
+                                       bg_tuple(bg))
     n_cams = len(cam_w2c_list)
     rgb = rgb[:, :, :h, :w].reshape(n_cams, B, 3, h, w)
     if clip:

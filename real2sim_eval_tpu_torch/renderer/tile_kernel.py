@@ -1,10 +1,18 @@
-"""Tile compositor K1: front-to-back splat blending per (instance, tile).
+"""Tile compositors: front-to-back splat blending per (instance, tile).
 
-Counterpart of the TPU kernel ``rasterize_tiles_batch``
-(the JAX package's renderer/tile_kernel.py). ``rasterize_tiles_batch``
-launches the hand-written CUDA kernel (``csrc/tile_composite.cu``) for
-tensors on the card and runs ``composite_tiles_plain``, the plain PyTorch
-version of the same function, for tensors on the CPU.
+Counterparts of three TPU kernels of the JAX package's
+renderer/tile_kernel.py, each a wrapper that launches a hand-written CUDA
+kernel for tensors on the card and runs the plain PyTorch version of the
+same function for tensors on the CPU:
+
+  - K1 ``rasterize_tiles_batch`` (``csrc/tile_composite.cu``): every tile
+    of every instance over a sorted pair table;
+  - K2 ``rasterize_tiles_sparse`` (``csrc/tile_sparse.cu``): only the
+    dirty tiles of a list, over a merged pair table, on top of a copy of
+    cached frames;
+  - K6 ``rasterize_tiles_sparse_merge`` (``csrc/tile_sparse_merge.cu``):
+    as K2, merging each dirty tile's static and dynamic pair segments
+    inside the kernel (``merge_segments`` is that merge in PyTorch).
 
 Semantics (renderCUDA / the TPU kernel's ``_composite_scoped``):
 alpha = min(0.99, o * exp(power)), skipped unless power <= 0 and
@@ -24,12 +32,17 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 MEDIAN_DEPTH_DEFAULT = 15.0
+DEPTH_LANE = 9
+
+
+def _check_table(name, t):
+    if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != 10:
+        raise ValueError(f"{name} must be (10, P) float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
 
 
 def _check(pairs, starts, ends):
-    if pairs.dtype != torch.float32 or pairs.dim() != 2 or pairs.shape[0] != 10:
-        raise ValueError(f"pairs must be (10, P) float32, got "
-                         f"{tuple(pairs.shape)} {pairs.dtype}")
+    _check_table("pairs", pairs)
     for name, t in (("tile_starts", starts), ("tile_ends", ends)):
         if t.dtype != torch.int32 or t.dim() != 2:
             raise ValueError(f"{name} must be (I, n_tiles) int32")
@@ -38,6 +51,50 @@ def _check(pairs, starts, ends):
                              f"{pairs.device}")
     if starts.shape != ends.shape:
         raise ValueError("tile_starts and tile_ends differ in shape")
+
+
+def _check_dirty(device, tables: dict) -> int:
+    """The (n_dirty,) int32 tables of a dirty-tile list; returns n_dirty."""
+    n = next(iter(tables.values())).shape[0]
+    for name, t in tables.items():
+        if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != n:
+            raise ValueError(f"{name} must be (n_dirty,) int32 like the other "
+                             f"dirty-tile tables, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, pairs on {device}")
+    return n
+
+
+def _check_caches(device, rgb_cache, depth_cache, n_tiles_x, n_tiles_y):
+    """Cached frames (..., 3, Hp, Wp) and (..., Hp, Wp) f32, leading dims
+    alike."""
+    h_pad, w_pad = n_tiles_y * TILE_H, n_tiles_x * TILE_W
+    for name, t, tail in (("rgb_cache", rgb_cache, (3, h_pad, w_pad)),
+                          ("depth_cache", depth_cache, (h_pad, w_pad))):
+        if t.dtype != torch.float32 or tuple(t.shape[-len(tail):]) != tail:
+            raise ValueError(f"{name} must be (..., {tail}) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, pairs on {device}")
+    if rgb_cache.shape[:-3] != depth_cache.shape[:-2]:
+        raise ValueError("rgb_cache and depth_cache differ in leading dims")
+
+
+def copy_frames(rgb_cache, depth_cache):
+    """(I, 3, Hp, Wp), (I, Hp, Wp) contiguous copies of the cached frames,
+    whose leading dims may be broadcast views (one frame per camera)."""
+    rgb = torch.empty(rgb_cache.shape, dtype=torch.float32,
+                      device=rgb_cache.device).copy_(rgb_cache)
+    depth = torch.empty(depth_cache.shape, dtype=torch.float32,
+                        device=depth_cache.device).copy_(depth_cache)
+    return (rgb.reshape((-1,) + rgb.shape[-3:]),
+            depth.reshape((-1,) + depth.shape[-2:]))
+
+
+# ---------------------------------------------------------------------------
+# K1: every tile
+# ---------------------------------------------------------------------------
 
 
 def rasterize_tiles_batch(pairs, tile_starts, tile_ends, n_tiles_x: int,
@@ -69,20 +126,17 @@ def rasterize_tiles_batch(pairs, tile_starts, tile_ends, n_tiles_x: int,
     return rgb, depth
 
 
-def composite_tiles_plain(pairs, tile_starts, tile_ends, n_tiles_x: int,
-                          n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
-    """Plain PyTorch version of the compositor: the same front-to-back blend
-    over a padded pair index, one tensor op per pair slot across all
-    (tile, 8, 128) pixels at once."""
+def _blend_tiles_plain(pairs, starts, ends, tiles, n_tiles_x: int):
+    """The front-to-back blend of K1, K2 and K6 in plain PyTorch: tile
+    ``tiles[g]`` over pair range [starts[g], ends[g]) for every g at once,
+    one tensor op per pair slot across all (g, 8, 128) pixels.
+    Returns (Cr, Cg, Cb, T, D), each (n_g, 8, 128)."""
     dev = pairs.device
-    n_inst, n_tiles = tile_starts.shape
-    starts = tile_starts.reshape(-1).long()
-    ends = tile_ends.reshape(-1).long()
+    starts, ends, tiles = starts.long(), ends.long(), tiles.long()
     n_g = starts.shape[0]
-    t = torch.arange(n_g, device=dev) % n_tiles
-    px = ((t % n_tiles_x) * TILE_W)[:, None, None] + torch.arange(
+    px = ((tiles % n_tiles_x) * TILE_W)[:, None, None] + torch.arange(
         TILE_W, device=dev)[None, None, :]
-    py = ((t // n_tiles_x) * TILE_H)[:, None, None] + torch.arange(
+    py = ((tiles // n_tiles_x) * TILE_H)[:, None, None] + torch.arange(
         TILE_H, device=dev)[None, :, None]
     px = px.to(torch.float32).expand(n_g, TILE_H, TILE_W)
     py = py.to(torch.float32).expand(n_g, TILE_H, TILE_W)
@@ -121,6 +175,17 @@ def composite_tiles_plain(pairs, tile_starts, tile_ends, n_tiles_x: int,
                         a[9].expand(shape), D)
         T = torch.where(contrib, test_T, T)
         done = done | would_done
+    return Cr, Cg, Cb, T, D
+
+
+def composite_tiles_plain(pairs, tile_starts, tile_ends, n_tiles_x: int,
+                          n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
+    """Plain PyTorch version of K1."""
+    n_inst, n_tiles = tile_starts.shape
+    tiles = torch.arange(n_inst * n_tiles, device=pairs.device) % n_tiles
+    Cr, Cg, Cb, T, D = _blend_tiles_plain(pairs, tile_starts.reshape(-1),
+                                          tile_ends.reshape(-1), tiles,
+                                          n_tiles_x)
 
     def to_image(v):            # (n_g, 8, 128) -> (I, Hp, Wp)
         return (v.reshape(n_inst, n_tiles_y, n_tiles_x, TILE_H, TILE_W)
@@ -130,3 +195,153 @@ def composite_tiles_plain(pairs, tile_starts, tile_ends, n_tiles_x: int,
     rgb = torch.stack([to_image(Cr + T * bg[0]), to_image(Cg + T * bg[1]),
                        to_image(Cb + T * bg[2])], dim=1)
     return rgb, to_image(D)
+
+
+# ---------------------------------------------------------------------------
+# K2: the dirty tiles of a list, over a merged pair table
+# ---------------------------------------------------------------------------
+
+
+def rasterize_tiles_sparse(pairs, inst_ids, tile_ids, starts, ends,
+                           rgb_cache, depth_cache, n_tiles_x: int,
+                           n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
+    """Re-composite the dirty tiles of a list on top of cached frames.
+
+    pairs: (10, P) f32 merged pair table; inst_ids / tile_ids / starts /
+    ends: (n_dirty,) i32, entry k re-composites tile tile_ids[k] of
+    instance inst_ids[k] from pairs[starts[k]:ends[k]]; rgb_cache
+    (..., 3, Hp, Wp) and depth_cache (..., Hp, Wp): the cached frames of
+    the I instances (leading dims flatten to I; broadcast views are fine).
+    Returns new (rgb (I, 3, Hp, Wp), depth (I, Hp, Wp)): a copy of the
+    caches with the listed tiles re-composited, every other pixel kept."""
+    _check_table("pairs", pairs)
+    _check_dirty(pairs.device, {"inst_ids": inst_ids, "tile_ids": tile_ids,
+                                "starts": starts, "ends": ends})
+    _check_caches(pairs.device, rgb_cache, depth_cache, n_tiles_x,
+                  n_tiles_y)
+    bg = tuple(float(b) for b in bg)
+    if pairs.device.type != "cuda":
+        return composite_sparse_plain(pairs, inst_ids, tile_ids, starts,
+                                      ends, rgb_cache, depth_cache,
+                                      n_tiles_x, n_tiles_y, bg)
+    rgb, depth = copy_frames(rgb_cache, depth_cache)
+    if inst_ids.shape[0]:
+        ext.load().tile_sparse(pairs.contiguous(), inst_ids.contiguous(),
+                               tile_ids.contiguous(), starts.contiguous(),
+                               ends.contiguous(), n_tiles_x, n_tiles_y,
+                               bg[0], bg[1], bg[2], rgb, depth)
+        ext.LAUNCHES["tile_sparse"] += 1
+    return rgb, depth
+
+
+def composite_sparse_plain(pairs, inst_ids, tile_ids, starts, ends,
+                           rgb_cache, depth_cache, n_tiles_x: int,
+                           n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
+    """Plain PyTorch version of K2: K1's blend over the listed tiles only,
+    written into a copy of the cached frames."""
+    rgb, depth = copy_frames(rgb_cache, depth_cache)
+    if not inst_ids.shape[0]:
+        return rgb, depth
+    Cr, Cg, Cb, T, D = _blend_tiles_plain(pairs, starts, ends, tile_ids,
+                                          n_tiles_x)
+    inst, tiles = inst_ids.long(), tile_ids.long()
+    ty, tx = tiles // n_tiles_x, tiles % n_tiles_x
+    rgb6 = rgb.view(rgb.shape[0], 3, n_tiles_y, TILE_H, n_tiles_x, TILE_W)
+    dep5 = depth.view(depth.shape[0], n_tiles_y, TILE_H, n_tiles_x, TILE_W)
+    rgb6[inst, :, ty, :, tx, :] = torch.stack(
+        [Cr + T * bg[0], Cg + T * bg[1], Cb + T * bg[2]], dim=1)
+    dep5[inst, ty, :, tx, :] = D
+    return rgb, depth
+
+
+# ---------------------------------------------------------------------------
+# K6: the dirty tiles, merging static and dynamic segments in the kernel
+# ---------------------------------------------------------------------------
+
+
+def _depth_order_key(depth):
+    """int64 in [0, 2^32) ordered as the f32 depths are."""
+    b = depth.contiguous().view(torch.int32).long()
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b) + (1 << 31)
+
+
+def merge_segments(data_s, s_starts, s_ends, data_d, d_starts, d_ends):
+    """Merge, per dirty-list entry k, the depth-sorted static segment
+    data_s[:, s_starts[k]:s_ends[k]] and dynamic segment
+    data_d[:, d_starts[k]:d_ends[k]] into one depth order: a dynamic pair
+    goes before a static pair of equal depth, and each stream keeps its
+    own order (the full pipeline's stable depth sort of the [dynamic;
+    static] scene). One stable sort of the rows of all entries by
+    (entry, depth), the dynamic rows first in its input.
+
+    Returns (merged (10, P_m) f32, starts (n_dirty,) i32, ends (n_dirty,)
+    i32 ranges of each entry in ``merged``)."""
+    dev = data_s.device
+    ls = (s_ends - s_starts).clamp(min=0).long()
+    ld = (d_ends - d_starts).clamp(min=0).long()
+    entry = torch.arange(ls.shape[0], device=dev)
+
+    def rows(seg_starts, lens):
+        total = int(lens.sum())
+        e = torch.repeat_interleave(entry, lens, output_size=total)
+        first = torch.cumsum(lens, 0) - lens
+        return e, seg_starts.long()[e] + torch.arange(total, device=dev) \
+            - first[e]
+
+    e_d, src_d = rows(d_starts, ld)
+    e_s, src_s = rows(s_starts, ls)
+    key = (torch.cat([e_d, e_s]) << 32) | _depth_order_key(torch.cat(
+        [data_d[DEPTH_LANE, src_d], data_s[DEPTH_LANE, src_s]]))
+    perm = torch.sort(key, stable=True).indices
+    merged = torch.cat([data_d[:, src_d], data_s[:, src_s]], dim=1)[:, perm]
+    ends = torch.cumsum(ls + ld, 0)
+    return (merged.contiguous(), (ends - ls - ld).to(torch.int32),
+            ends.to(torch.int32))
+
+
+def rasterize_tiles_sparse_merge(data_s, data_d, inst_ids, tile_ids,
+                                 s_starts, s_ends, d_starts, d_ends,
+                                 rgb_cache, depth_cache, n_tiles_x: int,
+                                 n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
+    """As ``rasterize_tiles_sparse``, but entry k blends the merge of the
+    static segment data_s[:, s_starts[k]:s_ends[k]] and the dynamic segment
+    data_d[:, d_starts[k]:d_ends[k]] (both (10, P) f32 tables whose
+    segments are depth-sorted), without materializing the merged table:
+    a dynamic pair goes first on equal depth."""
+    _check_table("data_s", data_s)
+    _check_table("data_d", data_d)
+    if data_d.device != data_s.device:
+        raise ValueError(f"data_d is on {data_d.device}, data_s on "
+                         f"{data_s.device}")
+    _check_dirty(data_s.device, {
+        "inst_ids": inst_ids, "tile_ids": tile_ids, "s_starts": s_starts,
+        "s_ends": s_ends, "d_starts": d_starts, "d_ends": d_ends})
+    _check_caches(data_s.device, rgb_cache, depth_cache, n_tiles_x,
+                  n_tiles_y)
+    bg = tuple(float(b) for b in bg)
+    if data_s.device.type != "cuda":
+        return composite_sparse_merge_plain(
+            data_s, data_d, inst_ids, tile_ids, s_starts, s_ends, d_starts,
+            d_ends, rgb_cache, depth_cache, n_tiles_x, n_tiles_y, bg)
+    rgb, depth = copy_frames(rgb_cache, depth_cache)
+    if inst_ids.shape[0]:
+        ext.load().tile_sparse_merge(
+            data_s.contiguous(), data_d.contiguous(), inst_ids.contiguous(),
+            tile_ids.contiguous(), s_starts.contiguous(), s_ends.contiguous(),
+            d_starts.contiguous(), d_ends.contiguous(), n_tiles_x, n_tiles_y,
+            bg[0], bg[1], bg[2], rgb, depth)
+        ext.LAUNCHES["tile_sparse_merge"] += 1
+    return rgb, depth
+
+
+def composite_sparse_merge_plain(data_s, data_d, inst_ids, tile_ids,
+                                 s_starts, s_ends, d_starts, d_ends,
+                                 rgb_cache, depth_cache, n_tiles_x: int,
+                                 n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
+    """Plain PyTorch version of K6: the merged order built by
+    ``merge_segments``, then K2's plain blend."""
+    merged, starts, ends = merge_segments(data_s, s_starts, s_ends, data_d,
+                                          d_starts, d_ends)
+    return composite_sparse_plain(merged, inst_ids, tile_ids, starts, ends,
+                                  rgb_cache, depth_cache, n_tiles_x,
+                                  n_tiles_y, bg)

@@ -8,7 +8,9 @@ self-collision on. It runs its plain references of both kernels
 assets are carried across as numpy arrays (``convert.assets_from_numpy``),
 both evaluators take two velocity-controlled steps and render, and the
 states and frames are compared at the JAX package's own tolerances
-(tests/test_batched.py: particles 5e-5, grippers 1e-5)."""
+(tests/test_batched.py: particles 5e-5, grippers 1e-5). The port renders
+on each of its branches: the full pipeline (``incremental="off"``) and the
+incremental one with either merge (sort + K2, stream K6)."""
 
 import dataclasses
 
@@ -19,8 +21,13 @@ from real2sim_eval_tpu.testing import (BUILTIN_URDF, TEST_CAMERAS, full_cfg,
                                        make_rope_points, make_synthetic_scene,
                                        write_fixture_checkpoint)
 from real2sim_eval_tpu_torch.convert import assets_from_numpy
+from real2sim_eval_tpu_torch.renderer import RasterConfig
 
 EPISODES = [0, 4]
+# the port's render branches: incremental off, or on with either merge
+BRANCHES = {"off": RasterConfig(incremental="off"),
+            "sort": RasterConfig(incremental="on", merge_kernel="sort"),
+            "stream": RasterConfig(incremental="on", merge_kernel="stream")}
 
 
 def jax_assets_tree(ev) -> dict:
@@ -118,7 +125,10 @@ def hold_then_reach_actions(B):
     return np.tile(a, (B, 1)).astype(np.float32)
 
 
-def test_whole_slice_matches_jax(evaluators):
+@pytest.fixture(scope="module")
+def stepped(evaluators):
+    """Both evaluators after two steps; the JAX frames of the state after
+    them and the JAX state after that render."""
     import jax.numpy as jnp
 
     jev, tev = evaluators
@@ -127,6 +137,19 @@ def test_whole_slice_matches_jax(evaluators):
         jev.step(jnp.asarray(acts))
         tev.step(acts)
     js, ts = jev.state, tev.state
+    j_out = jev.render()
+    return jev, tev, js, ts, j_out, jev.state
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_whole_slice_matches_jax(stepped, branch):
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
+
+    jev, tev0, js, ts, j_out, js_rendered = stepped
+    tev = TEval(tev0.assets, EPISODES, raster_config=BRANCHES[branch],
+                device="cpu")
+    assert tev.incremental == (branch != "off")
+    tev.state = ts
     assert np.isfinite(ts.sm.x.numpy()).all()
     np.testing.assert_allclose(ts.sm.x.numpy(), np.asarray(js.sm.x),
                                atol=5e-5)
@@ -140,7 +163,6 @@ def test_whole_slice_matches_jax(evaluators):
     np.testing.assert_allclose(tev.particle_states(), jev.particle_states(),
                                atol=5e-5)
 
-    j_out = jev.render()
     t_out = tev.render()
     for (name, jv), tv in zip((("fixed rgb", j_out[0]),
                                ("fixed depth", j_out[1]),
@@ -155,7 +177,10 @@ def test_whole_slice_matches_jax(evaluators):
             flips = int((np.abs(tv - jv) > 1e-2).sum())
             assert flips <= max(5, int(2e-4 * tv.size)), (name, flips)
     np.testing.assert_allclose(tev.state.qpos7.numpy(),
-                               np.asarray(jev.state.qpos7), atol=1e-4)
+                               np.asarray(js_rendered.qpos7), atol=1e-4)
+    if tev.incremental:
+        n_dirty = tev.render_telemetry[0][..., 0]
+        assert (n_dirty > 0).all() and (n_dirty < 8).all()
     assert tev.render_drops() == {"fixed_dropped_tiles": 0,
                                   "fixed_dropped_pairs": 0,
                                   "fixed_binning_dropped": 0,
@@ -165,3 +190,42 @@ def test_whole_slice_matches_jax(evaluators):
     assert obs["images"].shape == (len(EPISODES), 1, 3, 64, 128)
     scenes = tev.compose_scenes()
     assert scenes["means3D"].shape[1] == scenes["shs"].shape[1]
+
+
+def test_wrist_precull_is_pixel_exact(tmp_path):
+    """tests/test_precull.py:192's wide floor (4000 splats over 3.5 x 4 m):
+    the wrist frames of the port's incremental branch with the cull forced
+    on equal those with it off bitwise, and the cull keeps fewer blocks
+    than the scene has."""
+    from real2sim_eval_tpu.parallel import BatchedEvaluator as JEval
+    from real2sim_eval_tpu.renderer import RasterConfig as JRC
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
+
+    rope = make_rope_points(n=60, length=0.3)
+    write_fixture_checkpoint(tmp_path, "rope_floor", rope, spring_Y=2e3)
+    gs = make_synthetic_scene(tmp_path / "scans", rope_pts=rope,
+                              ik_urdf=None, n_table=4000,
+                              table_extent=((-1.5, 2.0), (-2.0, 2.0)))
+    cfg = full_cfg(tmp_path, "rope_floor", gs=gs, cameras=TEST_CAMERAS,
+                   physics_over=dict(dt=2e-4, self_collision=False))
+    jev = JEval(cfg, episode_ids=[0, 1],
+                raster_config=JRC(backend="reference"), physics_backend="xla")
+    assets = assets_from_numpy(jax_assets_tree(jev), "cpu")
+    outs = {}
+    for mode in ("on", "off"):
+        ev = TEval(assets, [0, 1], device="cpu", raster_config=RasterConfig(
+            incremental="on", wrist_precull=mode))
+        _, _, wims, wdeps = ev.render()
+        assert sum(ev.render_drops().values()) == 0
+        outs[mode] = (wims.numpy(), wdeps.numpy())
+        if mode == "on":
+            info = ev.wrist_cull
+            kept = ev.render_stats["wrist_static_blocks"]
+            assert info["static"] and info["cap_blocks"] < info[
+                "total_blocks"], info
+            assert 0 < int(kept.max()) < info["total_blocks"]
+        else:
+            assert ev.wrist_cull is None
+    assert outs["on"][0].max() > 0.05
+    np.testing.assert_array_equal(outs["on"][0], outs["off"][0])
+    np.testing.assert_array_equal(outs["on"][1], outs["off"][1])

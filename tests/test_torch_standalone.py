@@ -23,7 +23,9 @@ def port_files():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, real2sim_eval_tpu_torch, "
             "real2sim_eval_tpu_torch.parallel, real2sim_eval_tpu_torch.convert, "
-            "real2sim_eval_tpu_torch.testing, real2sim_eval_tpu_torch.ext\n"
+            "real2sim_eval_tpu_torch.testing, real2sim_eval_tpu_torch.ext, "
+            "real2sim_eval_tpu_torch.renderer.incremental, "
+            "real2sim_eval_tpu_torch.renderer.precull\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")
