@@ -12,7 +12,12 @@ tiles of the fixed cameras by the sort merge and K2, the wrist camera
 through the pre-cull rules and K1), and again with the stream merge (K6).
 It checks that the render paths agree, and reports timings, a stage
 breakdown of one step and render, and each kernel's time beside its bound
-at the flagship's shapes. Every line of standard output is one JSON object
+at the flagship's shapes. Then it drives the differentiable render (K7
+forward, K8 backward) through the refinement tool ``refine`` on one scan
+of the flagship scene (130,120 gaussians, degree-3 SH, 8 views at
+848x480), after holding K7 and K8 against their plain versions and the
+gradients against autograd of the plain compositor, with broken backwards
+that must fail the gate. Every line of standard output is one JSON object
 (the first holds the card's ``nvidia-smi`` name and power limit); the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase raises and
 exits non-zero without that line; so does a machine without a CUDA device.
@@ -43,6 +48,25 @@ PEAK_F32_OPS_S = 67e12
 # f32 operations per (pixel, pair) evaluation of the compositor's blend
 # (offsets, the conic quadratic, exp, the alpha/T tests, one update)
 K1_OPS_PER_EVAL = 20
+# f32 operations the backward K8 adds per contributing (pixel, pair) for
+# its ten gradient terms (the prefix colour, the suffix identity with its
+# division, the clamp gate and the x/y/conic/opacity/colour/depth terms),
+# on top of K1_OPS_PER_EVAL for the forward walk it repeats
+K8_OPS_PER_CONTRIB = 60
+# gradients against autograd through the plain compositor: the JAX suite's
+# tolerances (tests/test_diff.py:104-107), atol relative to the largest
+GRAD_RTOL = 2e-3
+GRAD_ATOL_REL = 1e-4
+# K8's per-pair table against its plain version: the same per-pixel
+# operations, the sums over a tile's 1024 pixels in another order
+K8_PLAIN_TOL = 1e-4                    # of each lane's largest |gradient|
+# K7's transmittance against the plain version's: the same operations
+T_TOL = 1e-5
+# the refinement phase: one scan of the flagship scene, 8 views
+REFINE_ITERS = 20
+REFINE_GEOM_ITERS = 3
+# shifts (m) along each fixed camera's x axis of the six extra views
+REFINE_SHIFTS = ((0.03, -0.03, 0.06), (0.03, -0.03, -0.06))
 # f32 operations of the spring-mass step's inner work items
 K3_OPS = {"spring_slot": 30, "particle": 30, "self_slot": 45,
           "contact_base": 80, "contact_query": 60}
@@ -180,18 +204,20 @@ def composite_both(pairs, starts, ends, n_tx, n_ty, chunk_inst=16):
 
 
 def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
-                     chunk: int = 16 * 420) -> int:
+                     chunk: int = 16 * 420) -> tuple[int, int]:
     """Sum over pixels of the pairs each pixel blends before it is done,
     the pair that finishes it included: the compositor's work on this
-    input, whatever order a kernel does it in. Tile ``tiles[g]`` walks
-    pairs[starts[g]:ends[g]] (flat lists). Same tests as
-    ``tile_kernel._blend_tiles_plain``."""
+    input, whatever order a kernel does it in; and of those, the pairs
+    that contribute (the backward's gradient terms). Tile ``tiles[g]``
+    walks pairs[starts[g]:ends[g]] (flat lists). Same tests as
+    ``tile_kernel._blend_tiles_plain``. Returns (walks, contributions)."""
     import torch
 
     from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
 
     dev = pairs.device
     total = torch.zeros((), dtype=torch.int64, device=dev)
+    contribs = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(0, starts.shape[0], chunk):
         s = starts[i:i + chunk].long()
         e = ends[i:i + chunk].long()
@@ -215,9 +241,11 @@ def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
             ok = in_range & (power <= 0.0) & (alpha >= tk.ALPHA_MIN)
             test_T = T * (1.0 - alpha)
             finish = ok & (test_T < tk.T_EPS)
-            T = torch.where(ok & ~finish & ~done, test_T, T)
+            contrib = ok & ~finish & ~done
+            contribs += contrib.sum()
+            T = torch.where(contrib, test_T, T)
             done = done | finish
-    return int(total)
+    return int(total), int(contribs)
 
 
 def bound_ms(n_bytes: float, walks: int) -> tuple[float, str]:
@@ -262,9 +290,10 @@ def k3_bound_ms(opts, tab, state) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_k1_small():
-    """K1 vs its plain version on one 848x480 instance of a 20k-gaussian
-    scene (flagship layout, cut to 20,000 gaussians)."""
+def small_flagship_bins():
+    """One 848x480 instance of a 20k-gaussian scene (flagship layout, cut
+    to 20,000 gaussians) through preprocess and binning: (bins, n_tx,
+    n_ty, gaussians)."""
     import torch
 
     from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
@@ -283,18 +312,244 @@ def check_k1_small():
                                scenes["rotations"], scenes["opacities"],
                                scenes["shs"], 0)
     n_tx, n_ty = -(-cam.width // 128), -(-cam.height // 8)
-    bins = bin_gaussians(pre, n_tx, n_ty, 128, 8)
+    return (bin_gaussians(pre, n_tx, n_ty, 128, 8), n_tx, n_ty,
+            int(scenes["means3D"].shape[1]))
+
+
+def check_k1_small():
+    """K1 vs its plain version on small_flagship_bins' scene."""
+    bins, n_tx, n_ty, n = small_flagship_bins()
     rgb_k, dep_k, rgb_p, dep_p, _ = composite_both(
         bins["pair_attrs"], bins["tile_starts"], bins["tile_ends"], n_tx, n_ty)
     err = float((rgb_k - rgb_p).abs().max())
     flips = depth_flips(dep_k, dep_p)
-    out = {"phase": "k1_check", "gaussians": int(scenes["means3D"].shape[1]),
+    out = {"phase": "k1_check", "gaussians": n,
            "pairs": int(bins["pair_attrs"].shape[1]), "max_abs_rgb": err,
            "depth_flips": flips, "rgb_tol": RGB_TOL,
            "flips_limit": flips_limit(dep_k.numel())}
     emit(out)
     if err > RGB_TOL or flips > out["flips_limit"]:
         fail(f"K1 disagrees with its plain version: {out}")
+
+
+def check_k7_small():
+    """K7 on small_flagship_bins' scene: its rgb and depth bitwise K1's
+    (one kernel body), its transmittance within T_TOL of the plain
+    version's, and T = d(rgb)/d(bg): the red plane at bg 1 minus the one
+    at bg 0."""
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    bins, n_tx, n_ty, n = small_flagship_bins()
+    args = (bins["pair_attrs"], bins["tile_starts"], bins["tile_ends"],
+            n_tx, n_ty)
+    bg = (0.1, 0.2, 0.3)
+    rgb7, dep7, t7 = tk.rasterize_tiles_batch_t(*args, bg)
+    rgb1, dep1 = tk.rasterize_tiles_batch(*args, bg)
+    rgb_p, _, t_p = tk.composite_tiles_plain(*args, bg, with_t=True)
+    rgb_w, _, _ = tk.rasterize_tiles_batch_t(*args, (1.0, 0.2, 0.3))
+    out = {"phase": "k7_check", "gaussians": n,
+           "pairs": int(bins["pair_attrs"].shape[1]),
+           "differing_pixels_vs_k1": int(((rgb7 != rgb1).any(dim=1)
+                                          | (dep7 != dep1)).sum()),
+           "max_abs_t_vs_plain": float((t7 - t_p).abs().max()),
+           "max_abs_rgb_vs_plain": float((rgb7 - rgb_p).abs().max()),
+           "max_abs_t_vs_bg_difference": float(
+               (rgb_w[:, 0] - rgb7[:, 0] - 0.9 * t7).abs().max()),
+           "t_min": float(t7.min()), "t_tol": T_TOL}
+    emit(out)
+    if (out["differing_pixels_vs_k1"] or out["max_abs_t_vs_plain"] > T_TOL
+            or out["max_abs_rgb_vs_plain"] > RGB_TOL
+            or out["max_abs_t_vs_bg_difference"] > 1e-5):
+        fail(f"K7 disagrees with K1 or its plain version: {out}")
+
+
+def grad_ratio(a, b) -> float:
+    """Largest |a - b| / (atol + GRAD_RTOL |b|), atol = GRAD_ATOL_REL *
+    max(|b|, 1): at most 1 where the JAX suite's gradient test passes."""
+    atol = GRAD_ATOL_REL * max(float(b.abs().max()), 1.0)
+    return float(((a - b).abs() / (atol + GRAD_RTOL * b.abs())).max())
+
+
+def lane_gap(table, ref) -> float:
+    """Largest |table - ref| of a (10, P) per-pair table, relative to the
+    largest |ref| of its lane; the worst lane."""
+    lane_max = ref.abs().amax(dim=1).clamp(min=1e-30)
+    return float(((table - ref).abs().amax(dim=1) / lane_max).max())
+
+
+def table_ratio(table, ref) -> float:
+    """grad_ratio lane by lane of a (10, P) per-pair table, the worst."""
+    return max(grad_ratio(table[i], ref[i]) for i in range(table.shape[0]))
+
+
+def k8_scene(n: int = 300, n_big: int = 40):
+    """check_reference's random scene plus ``n_big`` large splats of
+    opacity exactly 1, so the 0.99 clamp is active near their centres and
+    some pixels saturate; degree-3 SH. Tensors on the card."""
+    import torch
+
+    rng = np.random.default_rng(1)
+    m = n + n_big
+    q = rng.normal(size=(m, 4))
+    arrays = (
+        np.stack([rng.uniform(-1, 1, m), rng.uniform(-0.4, 0.4, m),
+                  rng.uniform(0.5, 3.0, m)], -1),
+        np.concatenate([rng.uniform(0.01, 0.08, (n, 3)),
+                        rng.uniform(0.08, 0.15, (n_big, 3))]),
+        q / np.linalg.norm(q, axis=-1, keepdims=True),
+        np.concatenate([rng.uniform(0.1, 1.0, n), np.ones(n_big)]),
+        rng.normal(size=(m, 16, 3)) * 0.3)
+    return [torch.as_tensor(v, dtype=torch.float32, device=DEVICE)
+            for v in arrays]
+
+
+def check_k8_small():
+    """The differentiable render on the card, on k8_scene from two views
+    at 256x64 with bg (0.3, 0.5, 0.2):
+
+    - K8's per-pair table against its plain version (K8_PLAIN_TOL of each
+      lane's largest gradient) and both against autograd's gradient of
+      the plain compositor with respect to the pair table (the gradient
+      gate: GRAD_RTOL, atol GRAD_ATOL_REL of the largest);
+    - four broken backwards, each the plain version with one edit, must
+      fail that gate: zero gradients, the bg * T_fin term dropped, the
+      clamp gate removed, the depth-crossing term dropped;
+    - ``rasterize_diff_views`` gradients in means, scales, quats,
+      opacities and SH against autograd through the same pipeline with
+      the plain compositor in place of K7/K8 (the gradient gate);
+    - a central finite difference of three opacities (rtol 5e-2) on
+      tests/test_diff.py's sparse scene."""
+    import torch
+
+    from real2sim_eval_tpu_torch.renderer import (Camera, diff,
+                                                  rasterize_diff,
+                                                  rasterize_diff_views)
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+    from real2sim_eval_tpu_torch.renderer.binning import bin_gaussians
+    from real2sim_eval_tpu_torch.renderer.preprocess import \
+        preprocess_gaussians
+
+    scene = k8_scene()
+    cam = Camera(width=256, height=64, fx=80.0, fy=80.0, cx=128.0, cy=32.0)
+    w2cs = torch.eye(4, device=DEVICE).repeat(2, 1, 1)
+    w2cs[1, 0, 3] = 0.1
+    bg = (0.3, 0.5, 0.2)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    wr = torch.randn((2, 3, 64, 256), generator=gen, device=DEVICE)
+    wd = torch.randn((2, 64, 256), generator=gen, device=DEVICE)
+
+    with torch.no_grad():
+        pre = preprocess_gaussians(cam, w2cs, *[
+            s[None].expand((2,) + s.shape) for s in scene], 3)
+        bins = bin_gaussians(pre, 2, 8, 128, 8)
+    pairs, starts, ends = (bins["pair_attrs"], bins["tile_starts"],
+                           bins["tile_ends"])
+    rgb, _, t_fin = tk.rasterize_tiles_batch_t(pairs, starts, ends, 2, 8, bg)
+    c_fin = rgb - t_fin[:, None] * torch.tensor(
+        bg, device=DEVICE)[None, :, None, None]
+    args = (pairs, starts, ends, wr, wd, c_fin, t_fin)
+    table_k = tk.composite_backward(*args, bg)
+    table_p = tk.composite_backward_plain(*args, bg)
+    leaf = pairs.clone().requires_grad_(True)
+    rgb_p, dep_p = tk.composite_tiles_plain(leaf, starts, ends, 2, 8, bg)
+    table_ref, = torch.autograd.grad(
+        (rgb_p * wr).sum() + (dep_p * wd).sum(), leaf)
+    undo = patch(tk, "_alpha_grad_gate",
+                 lambda orig: lambda araw: torch.ones_like(araw,
+                                                           dtype=torch.bool))
+    try:
+        no_gate = tk.composite_backward_plain(*args, bg)
+    finally:
+        undo()
+    mutants = {
+        "zero_gradients": torch.zeros_like(table_p),
+        "no_bg_t_fin": tk.composite_backward_plain(*args, (0.0, 0.0, 0.0)),
+        "no_clamp_gate": no_gate,
+        "no_depth_crossing": tk.composite_backward_plain(
+            pairs, starts, ends, wr, torch.zeros_like(wd), c_fin, t_fin, bg)}
+    plain_gap = lane_gap(table_k, table_p)
+
+    class PlainComposite:
+        """The plain compositor in K7/K8's place: autograd differentiates
+        it."""
+
+        @staticmethod
+        def apply(p, s, e, n_tx, n_ty, bg_):
+            return tk.composite_tiles_plain(p, s, e, n_tx, n_ty, bg_)
+
+    def scene_grads(plain: bool):
+        ts = [s.clone().requires_grad_(True) for s in scene]
+        undo = patch(diff, "_CompositeDiff",
+                     lambda orig: PlainComposite) if plain else None
+        try:
+            rgb_d, dep_d = rasterize_diff_views(cam, w2cs, *ts, 3, bg=bg,
+                                                device=DEVICE)
+        finally:
+            if undo:
+                undo()
+        ((rgb_d * wr).sum() + 0.1 * (dep_d * wd).sum()).backward()
+        return [t.grad for t in ts]
+
+    names = ("means3d", "scales", "quats", "opacities", "shs")
+    g_k, g_p = scene_grads(False), scene_grads(True)
+    scene_ratio = {nm: grad_ratio(a, b) for nm, a, b in zip(names, g_k, g_p)}
+
+    # central differences of opacity on tests/test_diff.py's sparse scene
+    # (20 splats, 256x16): a dense one crosses the alpha >= 1/255 and
+    # freeze thresholds within the step, which a derivative does not see
+    rng = np.random.default_rng(2)
+    fd_scene = [torch.as_tensor(v, dtype=torch.float32, device=DEVICE) for v
+                in (np.stack([rng.uniform(-1.2, 1.2, 20),
+                              rng.uniform(-1.2, 1.2, 20),
+                              rng.uniform(1.0, 3.0, 20)], -1),
+                    rng.uniform(0.02, 0.10, (20, 3)), np.tile([1.0, 0, 0, 0],
+                                                              (20, 1)),
+                    rng.uniform(0.2, 0.9, 20), rng.normal(size=(20, 1, 3)))]
+    fd_cam = Camera(width=256, height=16, fx=40.0, fy=40.0, cx=128.0, cy=8.0)
+    fd_w = torch.as_tensor(rng.normal(size=(3, 16, 256)), dtype=torch.float64,
+                           device=DEVICE)
+
+    def loss(o):
+        rgb_v, _ = rasterize_diff(fd_cam, torch.eye(4, device=DEVICE),
+                                  fd_scene[0], fd_scene[1], fd_scene[2], o,
+                                  fd_scene[4], 0, device=DEVICE)
+        return (rgb_v.double() * fd_w).sum()
+
+    opac = fd_scene[3]
+    o = opac.clone().requires_grad_(True)
+    loss(o).backward()
+    picks = (0, 7, 13)
+    fd = []
+    eps = 1e-3
+    with torch.no_grad():
+        for i in picks:
+            d = torch.zeros_like(opac)
+            d[i] = eps
+            fd.append([float(o.grad[i]),
+                       float((loss(opac + d) - loss(opac - d)) / (2 * eps))])
+    fd_ok = all(abs(g - f) <= 1e-3 + 5e-2 * abs(f) for g, f in fd)
+
+    out = {"phase": "k8_check", "gaussians": len(scene[0]), "views": 2,
+           "pairs": int(pairs.shape[1]),
+           "pairs_with_gradient": int((table_k.abs().sum(0) > 0).sum()),
+           "k8_vs_plain_max_rel": plain_gap, "k8_plain_tol": K8_PLAIN_TOL,
+           "k8_vs_autograd_ratio": table_ratio(table_k, table_ref),
+           "plain_vs_autograd_ratio": table_ratio(table_p, table_ref),
+           "mutant_ratios": {k: table_ratio(v, table_ref)
+                             for k, v in mutants.items()},
+           "scene_grad_ratios": scene_ratio,
+           "grad_rtol": GRAD_RTOL, "grad_atol_rel": GRAD_ATOL_REL,
+           "fd_opacity": {"index": picks, "grad_vs_fd": fd, "ok": fd_ok},
+           "t_min": float(t_fin.min())}
+    emit(out)
+    bad = [k for k in ("k8_vs_autograd_ratio", "plain_vs_autograd_ratio")
+           if out[k] > 1.0]
+    bad += [k for k, v in scene_ratio.items() if v > 1.0]
+    if plain_gap > K8_PLAIN_TOL or bad or not fd_ok:
+        fail(f"K8 gradients disagree: {bad} {out}")
+    passing = [k for k, v in out["mutant_ratios"].items() if v <= 1.0]
+    if passing:
+        fail(f"broken backwards pass the gradient gate: {passing}")
 
 
 def k3_mutants(opts, tab, state, plain) -> dict:
@@ -844,10 +1099,24 @@ def stage_breakdown(ev, ev_s, actions, total_ms: float):
     render_ms = timed(ev, acc, ev.render)
     stream_render_ms = timed(ev_s, acc_s, ev_s.render)
 
+    prof = device_profile(lambda: (ev.step(actions), ev.render()))
+    emit({"phase": "breakdown", "step_ms": step_ms, "render_ms": render_ms,
+          "stages_ms": acc, "stream_render_ms": stream_render_ms,
+          "stream_render_stages_ms": acc_s, **prof,
+          # over the unprofiled flagship step + render (the profiler slows
+          # the host, not the device)
+          "device_busy_share": prof["device_ms"] / total_ms})
+
+
+def device_profile(fn) -> dict:
+    """``fn`` once under ``torch.profiler``: its wall ms (profiled), the
+    device's kernel ms, and the heaviest kernels and operators."""
+    import torch
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        wall_ms, _ = time_host(lambda: (ev.step(actions), ev.render()))
+        wall_ms, _ = time_host(fn)
     events = prof.key_averages()
     # device rows are the kernels themselves; a CPU operator's self device
     # time is that of the kernels it launched (the same time again)
@@ -857,20 +1126,14 @@ def stage_breakdown(ev, ev_s, actions, total_ms: float):
     ops = sorted((e for e in events
                   if e.device_type == torch.autograd.DeviceType.CPU),
                  key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
 
     def top(rows, n):
         return [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                 for e in rows[:n]]
 
-    emit({"phase": "breakdown", "step_ms": step_ms, "render_ms": render_ms,
-          "stages_ms": acc, "stream_render_ms": stream_render_ms,
-          "stream_render_stages_ms": acc_s, "profiled_wall_ms": wall_ms,
-          "device_ms": device_ms,
-          # over the unprofiled flagship step + render (the profiler slows
-          # the host, not the device)
-          "device_busy_share": device_ms / total_ms,
-          "top_kernels_ms": top(kernels, 8), "top_ops_ms": top(ops, 10)})
+    return {"profiled_wall_ms": wall_ms,
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "top_kernels_ms": top(kernels, 8), "top_ops_ms": top(ops, 10)}
 
 
 def measure_kernels(ev, ev_s, actions, launches, launches_s):
@@ -920,8 +1183,8 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     rgb_k, dep_k, rgb_p, dep_p, k1_plain_ms = composite_both(
         pairs, starts, ends, n_tx, n_ty)
     tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
-    walks = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
-                             tiles, n_tx)
+    walks, _ = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
+                                tiles, n_tx)
     k1_bound, k1_by = k1_bound_ms(pairs, starts, rgb_k, walks)
     k1 = {"name": "tile_composite", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/tile_composite.cu",
@@ -945,7 +1208,7 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     rgb_k, dep_k = tk.rasterize_tiles_sparse(*args2)
     k2_plain_ms, (rgb_p, dep_p) = time_host(
         lambda: tk.composite_sparse_plain(*args2))
-    walks = pixel_pair_walks(m_pairs, m_st, m_en, tile, ntx)
+    walks, _ = pixel_pair_walks(m_pairs, m_st, m_en, tile, ntx)
     rows = int((m_en - m_st).sum())
     k2_bound, k2_by = sparse_bound_ms(rows, 4, int(inst.numel()), walks)
     k2 = {"name": "tile_sparse", "route": "cuda",
@@ -975,7 +1238,7 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     # the merged order of K6 is K2's: K2 over the same merge, bitwise
     rgb_2, dep_2 = tk.rasterize_tiles_sparse(merged, inst, tile, m_st, m_en,
                                              rgb_c, dep_c, ntx, nty, bg)
-    walks = pixel_pair_walks(merged, m_st, m_en, tile, ntx)
+    walks, _ = pixel_pair_walks(merged, m_st, m_en, tile, ntx)
     rows = int((se - ss).sum() + (de - ds).sum())
     k6_bound, k6_by = sparse_bound_ms(rows, 6, int(inst.numel()), walks)
     k6 = {"name": "tile_sparse_merge", "route": "cuda",
@@ -1008,6 +1271,211 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# the refinement path
+# ---------------------------------------------------------------------------
+
+
+def refinement_scene() -> dict:
+    """Env 0 of the flagship scene (object 31,000, table 99,000, clip 120:
+    130,120 gaussians) as raw 3DGS parameters (numpy): log scales, logit
+    opacities and degree-3 SH, the DC from the scene and the 45 higher
+    coefficients N(0, 0.05^2) from a seeded generator, as a real PLY."""
+    import torch
+
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+    from real2sim_eval_tpu_torch.utils.ply import coeffs_to_sh_colors
+
+    a = make_flagship_assets(batch=1, n_table=N_TABLE,
+                             n_obj_dense=N_OBJ_DENSE, device=DEVICE)
+    ev = BatchedEvaluator(a, [0], device=DEVICE, raster_config=render_off())
+    s = {k: v[0] for k, v in ev.compose(ev.state, dc_only=True)[0].items()}
+    n = s["means3D"].shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    coeffs = torch.cat([s["shs"][:, :1], 0.05 * torch.randn(
+        (n, 15, 3), generator=gen, device=DEVICE)], dim=1)
+    o = s["opacities"].reshape(-1, 1)
+    return {"means3D": s["means3D"].cpu().numpy(),
+            "sh_colors": coeffs_to_sh_colors(coeffs.cpu().numpy()),
+            "log_scales": torch.log(s["scales"]).cpu().numpy(),
+            "unnorm_rotations": s["rotations"].cpu().numpy(),
+            "logit_opacities": torch.log(o / (1.0 - o)).cpu().numpy()}
+
+
+def refinement_views():
+    """bench.py's two fixed cameras and six poses shifted along their
+    camera x axes by REFINE_SHIFTS: (ks (8, 3, 3), w2cs (8, 4, 4))."""
+    from real2sim_eval_tpu_torch.testing import CAMERAS
+
+    ks, w2cs = [], []
+    fixed = [c for c in CAMERAS if c["type"] == "side"]
+    for c, shifts in zip(fixed, REFINE_SHIFTS):
+        w2c = np.linalg.inv(np.asarray(c["c2w"], np.float32).reshape(4, 4))
+        for d in (0.0,) + shifts:
+            v = w2c.copy()
+            v[0, 3] -= d              # the centre moves d along camera x
+            w2cs.append(v)
+            ks.append(np.asarray(c["intr"], np.float32).reshape(3, 3))
+    return np.stack(ks), np.stack(w2cs).astype(np.float32)
+
+
+def run_refinement():
+    """The refinement tool at the size its users run: ``refine`` on one
+    scan of the flagship scene (130,120 gaussians, degree-3 SH) against 8
+    views at 848x480, all in one K7 and one K8 launch per iteration. The
+    targets are the port's forward render (``rasterize``, K1) of the true
+    scene; the start perturbs the SH by N(0, 0.3^2) and the logit
+    opacities by -1. REFINE_ITERS iterations of the CLI's defaults (colours
+    and opacities, lr 5e-3) with the launch counts set to 0 just before and
+    read just after; the loss must fall and K7 and K8 launch every
+    iteration. Then REFINE_GEOM_ITERS iterations of means, scales and
+    rotations, whose losses must be finite. Returns (launches, K7's and
+    K8's arguments of the first iteration)."""
+    import torch
+
+    from real2sim_eval_tpu_torch import ext
+    from real2sim_eval_tpu_torch.experiments.utils.refine_gs import refine
+    from real2sim_eval_tpu_torch.renderer import Camera, diff, rasterize
+    from real2sim_eval_tpu_torch.utils.ply import sh_colors_to_coeffs
+
+    t0 = time.perf_counter()
+    true = refinement_scene()
+    ks, w2cs = refinement_views()
+    k = ks[0]
+    cam = Camera(width=848, height=480, fx=float(k[0, 0]), fy=float(k[1, 1]),
+                 cx=float(k[0, 2]), cy=float(k[1, 2]))
+    dev = {key: torch.as_tensor(v, device=DEVICE) for key, v in true.items()}
+    shs = torch.as_tensor(sh_colors_to_coeffs(true["sh_colors"]),
+                          device=DEVICE)
+    images = np.stack([torch.clamp(rasterize(
+        cam, w2c, dev["means3D"], torch.exp(dev["log_scales"]),
+        dev["unnorm_rotations"],
+        torch.sigmoid(dev["logit_opacities"]).reshape(-1), shs, 3,
+        device=DEVICE)[0], 0.0, 1.0).permute(1, 2, 0).cpu().numpy()
+        for w2c in w2cs])
+    gen = torch.Generator().manual_seed(1)
+    start = dict(true)
+    start["sh_colors"] = true["sh_colors"] + 0.3 * torch.randn(
+        true["sh_colors"].shape, generator=gen).numpy()
+    start["logit_opacities"] = true["logit_opacities"] - 1.0
+    setup_s = time.perf_counter() - t0
+
+    k7_seen, undo7 = capture(diff, "rasterize_tiles_batch_t")
+    k8_seen, undo8 = capture(diff, "composite_backward")
+    stats = {}
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ext.reset_launch_counts()
+    try:
+        wall_ms, (_, hist) = time_host(lambda: refine(
+            start, ks, w2cs, images, attrs=("colors", "opacities"),
+            iters=REFINE_ITERS, lr=5e-3, log_every=1, device=DEVICE,
+            stats=stats))
+    finally:
+        undo8()
+        undo7()
+    launches = dict(ext.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _, hist_g = refine(start, ks, w2cs, images,
+                       attrs=("means", "scales", "rotations"),
+                       iters=REFINE_GEOM_ITERS, lr=5e-3, log_every=1,
+                       device=DEVICE)
+    # the device's share: 5 more iterations under the profiler (their
+    # set-up, the parameters' and targets' upload, counts with them)
+    prof = device_profile(lambda: refine(start, ks, w2cs, images, iters=5,
+                                         lr=5e-3, log_every=5,
+                                         device=DEVICE))
+    iter_ms = float(sum(np.mean(v) for v in stats.values()))
+    _, starts, ends = k7_seen["args"][:3]
+    out = {"phase": "refinement", "gaussians": int(true["means3D"].shape[0]),
+           "sh_degree": 3, "views": len(w2cs), "size": "848x480",
+           "setup_s": setup_s, "iters": REFINE_ITERS, "wall_ms": wall_ms,
+           **{key: float(np.mean(v)) for key, v in stats.items()},
+           "iter_ms": iter_ms, "each_ms": stats,
+           "profile_5_iters": prof,
+           "device_busy_share": prof["device_ms"] / 5 / iter_ms,
+           "pairs_per_view": (ends - starts).sum(dim=1).tolist(),
+           "max_memory_allocated_bytes": int(peak),
+           "loss_first": hist[0], "loss_last": hist[-1], "losses": hist,
+           "geometry_losses": hist_g, "launches": launches}
+    emit(out)
+    finite = bool(np.isfinite(hist).all() and np.isfinite(hist_g).all())
+    if not (finite and hist[-1] < hist[0]):
+        fail(f"the refinement's loss did not fall or is not finite: {out}")
+    for name in ("tile_composite_t", "tile_backward"):
+        if launches[name] < REFINE_ITERS:
+            fail(f"refinement: {name} launched {launches[name]} times in "
+                 f"{REFINE_ITERS} iterations")
+    return launches, k7_seen["args"], k8_seen["args"]
+
+
+def measure_refine_kernels(launches, k7_args, k8_args):
+    """K7 and K8 at the refinement's shapes (its first iteration's
+    inputs): each kernel, its plain version and the least time the card
+    could take."""
+    import torch
+
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    # the captured pair table is the autograd graph's: measure it detached
+    k7_args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                    for a in k7_args)
+    k8_args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                    for a in k8_args)
+    pairs, starts, ends, n_tx, n_ty, bg = k7_args
+    k7_ms = time_cuda(lambda: tk.rasterize_tiles_batch_t(*k7_args), 10)
+    rgb_k, _, t_k = tk.rasterize_tiles_batch_t(*k7_args)
+    k7_plain_ms, (rgb_p, _, t_p) = time_host(
+        lambda: tk.composite_tiles_plain(*k7_args, with_t=True))
+    tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
+    walks, contribs = pixel_pair_walks(pairs, starts.reshape(-1),
+                                       ends.reshape(-1), tiles, n_tx)
+    # rgb, depth and T written: 5 planes
+    k7_bound, k7_by = bound_ms(pairs.numel() * 4 + 2 * starts.numel() * 4
+                               + rgb_k.numel() * 4 * 5 // 3, walks)
+    k7 = {"name": "tile_composite_t", "route": "cuda",
+          "source": "real2sim_eval_tpu_torch/csrc/tile_composite.cu",
+          "replaces": "real2sim_eval_tpu/renderer/tile_kernel.py:264",
+          "launches": launches["tile_composite_t"],
+          "max_abs_err": max(float((rgb_k - rgb_p).abs().max()),
+                             float((t_k - t_p).abs().max())),
+          "ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound,
+          "bound_by": k7_by, "library_ms": None}
+
+    k8_ms = time_cuda(lambda: tk.composite_backward(*k8_args), 10)
+    table_k = tk.composite_backward(*k8_args)
+    k8_plain_ms, table_p = time_host(
+        lambda: tk.composite_backward_plain(*k8_args))
+    # pairs read and their gradients written (10 f32 each), the tile
+    # ranges, and 8 planes read: dL/drgb, C_fin, dL/ddepth, T_fin
+    n_bytes = (pairs.numel() * 4 * 2 + 2 * starts.numel() * 4
+               + rgb_k.numel() * 4 * 8 // 3)
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = (walks * K1_OPS_PER_EVAL
+             + contribs * K8_OPS_PER_CONTRIB) / PEAK_F32_OPS_S
+    k8_rel = lane_gap(table_k, table_p)
+    k8 = {"name": "tile_backward", "route": "cuda",
+          "source": "real2sim_eval_tpu_torch/csrc/tile_backward.cu",
+          "replaces": "real2sim_eval_tpu/renderer/diff.py:128",
+          "launches": launches["tile_backward"],
+          "max_abs_err": float((table_k - table_p).abs().max()),
+          "ms": k8_ms, "plain_ms": k8_plain_ms,
+          "bound_ms": max(t_bytes, t_ops) * 1e3,
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+          "library_ms": None}
+    emit({"phase": "refine_kernel_inputs", "instances": int(starts.shape[0]),
+          "tiles": int(starts.numel()), "pairs": int(pairs.shape[1]),
+          "pixel_pair_blends": walks, "contributing_blends": contribs,
+          "k8_vs_plain_max_rel": k8_rel, "k8_plain_tol": K8_PLAIN_TOL,
+          "k7_max_abs_t": float((t_k - t_p).abs().max())})
+    if k7["max_abs_err"] > RGB_TOL or float((t_k - t_p).abs().max()) > T_TOL:
+        fail(f"K7 disagrees at the refinement's shapes: {k7}")
+    if k8_rel > K8_PLAIN_TOL:
+        fail(f"K8 disagrees at the refinement's shapes: {k8_rel}")
+    return [k7, k8]
+
+
 def main() -> int:
     import torch
 
@@ -1031,6 +1499,8 @@ def main() -> int:
           "flags": list(ext.CUDA_FLAGS), "sources": list(ext.SOURCES)})
 
     check_k1_small()
+    check_k7_small()
+    check_k8_small()
     check_k2_k6_small()
     check_k3_grasp()
     check_k3_loop()
@@ -1040,6 +1510,9 @@ def main() -> int:
     render_parity(ev, ev_s)
     stage_breakdown(ev, ev_s, actions, flagship["total_ms"])
     kernels = measure_kernels(ev, ev_s, actions, launches, launches_s)
+    del ev, ev_s
+    launches_r, k7_args, k8_args = run_refinement()
+    kernels += measure_refine_kernels(launches_r, k7_args, k8_args)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -56,17 +56,25 @@ int64_t check_dirty_list(std::initializer_list<std::pair<const torch::Tensor*,
   return n;
 }
 
-void tile_composite(torch::Tensor pairs, torch::Tensor starts,
-                    torch::Tensor ends, int64_t n_tiles_x, int64_t n_tiles_y,
-                    double bg0, double bg1, double bg2, torch::Tensor rgb,
-                    torch::Tensor depth) {
+// the pair table and its (I, n_tiles) i32 tile ranges; returns I
+int64_t check_ranges(const torch::Tensor& pairs, const torch::Tensor& starts,
+                     const torch::Tensor& ends, int64_t n_tiles_x,
+                     int64_t n_tiles_y) {
   check_table(pairs, "pairs");
   check(starts, "tile_starts", at::kInt);
   check(ends, "tile_ends", at::kInt);
   TORCH_CHECK(starts.dim() == 2 && starts.size(1) == n_tiles_x * n_tiles_y &&
                   ends.sizes() == starts.sizes(),
               "tile_starts and tile_ends must be (I, n_tiles_x * n_tiles_y)");
-  const int64_t n_inst = starts.size(0);
+  return starts.size(0);
+}
+
+void tile_composite(torch::Tensor pairs, torch::Tensor starts,
+                    torch::Tensor ends, int64_t n_tiles_x, int64_t n_tiles_y,
+                    double bg0, double bg1, double bg2, torch::Tensor rgb,
+                    torch::Tensor depth) {
+  const int64_t n_inst =
+      check_ranges(pairs, starts, ends, n_tiles_x, n_tiles_y);
   check_frames(rgb, depth, n_inst, n_tiles_x, n_tiles_y);
   const c10::cuda::CUDAGuard guard(pairs.device());
   C10_CUDA_CHECK(tile_composite_launch(
@@ -74,6 +82,48 @@ void tile_composite(torch::Tensor pairs, torch::Tensor starts,
       ends.data_ptr<int>(), (int)n_inst, (int)n_tiles_x, (int)n_tiles_y,
       (float)bg0, (float)bg1, (float)bg2, rgb.data_ptr<float>(),
       depth.data_ptr<float>(), c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void tile_composite_t(torch::Tensor pairs, torch::Tensor starts,
+                      torch::Tensor ends, int64_t n_tiles_x,
+                      int64_t n_tiles_y, double bg0, double bg1, double bg2,
+                      torch::Tensor rgb, torch::Tensor depth,
+                      torch::Tensor t_fin) {
+  const int64_t n_inst =
+      check_ranges(pairs, starts, ends, n_tiles_x, n_tiles_y);
+  check_frames(rgb, depth, n_inst, n_tiles_x, n_tiles_y);
+  check(t_fin, "t_fin", at::kFloat);
+  TORCH_CHECK(t_fin.sizes() == depth.sizes(), "t_fin must be shaped as depth");
+  const c10::cuda::CUDAGuard guard(pairs.device());
+  C10_CUDA_CHECK(tile_composite_t_launch(
+      pairs.data_ptr<float>(), pairs.size(1), starts.data_ptr<int>(),
+      ends.data_ptr<int>(), (int)n_inst, (int)n_tiles_x, (int)n_tiles_y,
+      (float)bg0, (float)bg1, (float)bg2, rgb.data_ptr<float>(),
+      depth.data_ptr<float>(), t_fin.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void tile_backward(torch::Tensor pairs, torch::Tensor starts,
+                   torch::Tensor ends, int64_t n_tiles_x, int64_t n_tiles_y,
+                   torch::Tensor dl_rgb, torch::Tensor dl_depth,
+                   torch::Tensor c_fin, torch::Tensor t_fin, double bg0,
+                   double bg1, double bg2, torch::Tensor grads) {
+  const int64_t n_inst =
+      check_ranges(pairs, starts, ends, n_tiles_x, n_tiles_y);
+  check_table(grads, "grads");
+  TORCH_CHECK(grads.size(1) == pairs.size(1), "grads must be shaped as pairs");
+  check_frames(dl_rgb, dl_depth, n_inst, n_tiles_x, n_tiles_y);
+  check_frames(c_fin, t_fin, n_inst, n_tiles_x, n_tiles_y);
+  const c10::cuda::CUDAGuard guard(pairs.device());
+  C10_CUDA_CHECK(tile_backward_launch(
+      pairs.data_ptr<float>(), pairs.size(1), starts.data_ptr<int>(),
+      ends.data_ptr<int>(), (int)n_inst, (int)n_tiles_x, (int)n_tiles_y,
+      dl_rgb.data_ptr<float>(), dl_depth.data_ptr<float>(),
+      c_fin.data_ptr<float>(), t_fin.data_ptr<float>(), (float)bg0,
+      (float)bg1, (float)bg2, grads.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -266,6 +316,11 @@ void spring_mass_step(
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tile_composite", &tile_composite,
         "Tile compositor over (instance, 8x128 tile) (CUDA)");
+  m.def("tile_composite_t", &tile_composite_t,
+        "Tile compositor writing the final transmittance too (CUDA)");
+  m.def("tile_backward", &tile_backward,
+        "Per-pair gradients of the tile compositor by a front-to-back "
+        "re-walk (CUDA)");
   m.def("tile_sparse", &tile_sparse,
         "Dirty-tile compositor over a merged pair table, in place (CUDA)");
   m.def("tile_sparse_merge", &tile_sparse_merge,

@@ -1,7 +1,8 @@
 // Front-to-back splat blending of one 8x128 tile: the per-thread pixel
-// state and the per-batch blend shared by the tile compositors K1
+// state and the per-batch blend shared by the tile compositors K1 and K7
 // (tile_composite.cu), K2 (tile_sparse.cu) and K6 (tile_sparse_merge.cu),
-// so the three cannot drift apart.
+// so they cannot drift apart. The backward K8 (tile_backward.cu) repeats
+// the blend's tests in the same order to recompute T.
 //
 // Layout: one CTA of 256 threads per tile, each thread owning 4 pixels of
 // one column (rows r, r+2, r+4, r+6), so every row store is 128 consecutive
@@ -122,12 +123,14 @@ __device__ __forceinline__ void blend_range(const float* __restrict__ pairs,
   }
 }
 
-// out = C + T * bg and the median depth, into instance inst's frame.
+// out = C + T * bg and the median depth, into instance inst's frame; the
+// final transmittance T too where t_fin is not null (K7).
 __device__ __forceinline__ void store_pixels(const Pixels& p, int inst,
                                              int tx, int ty, int h_pad,
                                              int w_pad, float bg0, float bg1,
                                              float bg2, float* rgb,
-                                             float* depth) {
+                                             float* depth,
+                                             float* t_fin = nullptr) {
   const int col = threadIdx.x % kTileW;
   const int row0 = threadIdx.x / kTileW;
   const long long plane = (long long)h_pad * w_pad;
@@ -140,6 +143,7 @@ __device__ __forceinline__ void store_pixels(const Pixels& p, int inst,
     out[plane] = p.Cg[k] + p.T[k] * bg1;
     out[2 * plane] = p.Cb[k] + p.T[k] * bg2;
     depth[(long long)inst * plane + pix] = p.D[k];
+    if (t_fin) t_fin[(long long)inst * plane + pix] = p.T[k];
   }
 }
 

@@ -1,7 +1,11 @@
-// Tile compositor K1: front-to-back Gaussian-splat blending per 8x128 tile.
+// Tile compositors K1 and K7: front-to-back Gaussian-splat blending per
+// 8x128 tile.
 //
-// Replaces the TPU Pallas kernel K1 (the JAX package's renderer/
-// tile_kernel.py: rasterize_tiles_batch, _kernel and _composite_scoped).
+// Replaces two TPU Pallas kernels of the JAX package's
+// renderer/tile_kernel.py: K1 (rasterize_tiles_batch, _kernel and
+// _composite_scoped) and K7 (rasterize_tiles_batch_t, _kernel_t), which is
+// K1 writing the final transmittance as well, the residual of the
+// differentiable render's backward (tile_backward.cu).
 //
 // Design: one CTA per (instance, 8x128 tile), as renderCUDA assigns one
 // block per tile; 256 threads, each owning 4 pixels of one column. Pairs
@@ -10,7 +14,8 @@
 // attribute. A CTA stops once every pixel of its tile is saturated
 // (__syncthreads_count over the live pixels), exactly where the TPU kernel's
 // while_loop stops. The per-batch blend lives in tile_blend.cuh, shared with
-// the dirty-tile compositors K2 and K6.
+// the dirty-tile compositors K2 and K6; K7 is this kernel with a T plane,
+// so its rgb and depth are K1's bitwise.
 //
 // Bound: the inner loop is ~20 f32 operations per (pixel, pair) with one
 // expf, so the kernel is bound by operations on the non-tensor f32 pipe;
@@ -35,7 +40,7 @@ tile_composite_kernel(const float* __restrict__ pairs, long long n_pairs,
                       const int* __restrict__ ends, int n_tiles_x,
                       int n_tiles, int h_pad, int w_pad, float bg0,
                       float bg1, float bg2, float* __restrict__ rgb,
-                      float* __restrict__ depth) {
+                      float* __restrict__ depth, float* __restrict__ t_fin) {
   __shared__ float sh[kAttr][kBatch];
 
   const int g = blockIdx.x;                 // (instance, tile)
@@ -47,7 +52,21 @@ tile_composite_kernel(const float* __restrict__ pairs, long long n_pairs,
   Pixels p;
   init_pixels(p, tx, ty);
   blend_range(pairs, n_pairs, starts[g], ends[g], sh, p);
-  store_pixels(p, inst, tx, ty, h_pad, w_pad, bg0, bg1, bg2, rgb, depth);
+  store_pixels(p, inst, tx, ty, h_pad, w_pad, bg0, bg1, bg2, rgb, depth,
+               t_fin);
+}
+
+cudaError_t launch(const float* pairs, long long n_pairs, const int* starts,
+                   const int* ends, int n_inst, int n_tiles_x, int n_tiles_y,
+                   float bg0, float bg1, float bg2, float* rgb, float* depth,
+                   float* t_fin, cudaStream_t stream) {
+  const int n_tiles = n_tiles_x * n_tiles_y;
+  const long long blocks = (long long)n_inst * n_tiles;
+  if (blocks == 0) return cudaSuccess;
+  tile_composite_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      pairs, n_pairs, starts, ends, n_tiles_x, n_tiles, n_tiles_y * kTileH,
+      n_tiles_x * kTileW, bg0, bg1, bg2, rgb, depth, t_fin);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -56,11 +75,14 @@ extern "C" cudaError_t tile_composite_launch(
     const float* pairs, long long n_pairs, const int* starts, const int* ends,
     int n_inst, int n_tiles_x, int n_tiles_y, float bg0, float bg1, float bg2,
     float* rgb, float* depth, cudaStream_t stream) {
-  const int n_tiles = n_tiles_x * n_tiles_y;
-  const long long blocks = (long long)n_inst * n_tiles;
-  if (blocks == 0) return cudaSuccess;
-  tile_composite_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      pairs, n_pairs, starts, ends, n_tiles_x, n_tiles, n_tiles_y * kTileH,
-      n_tiles_x * kTileW, bg0, bg1, bg2, rgb, depth);
-  return cudaGetLastError();
+  return launch(pairs, n_pairs, starts, ends, n_inst, n_tiles_x, n_tiles_y,
+                bg0, bg1, bg2, rgb, depth, nullptr, stream);
+}
+
+extern "C" cudaError_t tile_composite_t_launch(
+    const float* pairs, long long n_pairs, const int* starts, const int* ends,
+    int n_inst, int n_tiles_x, int n_tiles_y, float bg0, float bg1, float bg2,
+    float* rgb, float* depth, float* t_fin, cudaStream_t stream) {
+  return launch(pairs, n_pairs, starts, ends, n_inst, n_tiles_x, n_tiles_y,
+                bg0, bg1, bg2, rgb, depth, t_fin, stream);
 }

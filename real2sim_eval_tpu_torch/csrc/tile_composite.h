@@ -1,5 +1,5 @@
-// C interface of the tile compositors: K1 (tile_composite.cu), K2
-// (tile_sparse.cu) and K6 (tile_sparse_merge.cu).
+// C interface of the tile compositors: K1 and K7 (tile_composite.cu), K8
+// (tile_backward.cu), K2 (tile_sparse.cu) and K6 (tile_sparse_merge.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,6 +17,28 @@ cudaError_t tile_composite_launch(const float* pairs, long long n_pairs,
                                   int n_inst, int n_tiles_x, int n_tiles_y,
                                   float bg0, float bg1, float bg2, float* rgb,
                                   float* depth, cudaStream_t stream);
+
+// K7: K1 writing the final transmittance t_fin (n_inst, 8 * n_tiles_y,
+// 128 * n_tiles_x) f32 as well; rgb and depth are K1's bitwise.
+cudaError_t tile_composite_t_launch(const float* pairs, long long n_pairs,
+                                    const int* starts, const int* ends,
+                                    int n_inst, int n_tiles_x, int n_tiles_y,
+                                    float bg0, float bg1, float bg2,
+                                    float* rgb, float* depth, float* t_fin,
+                                    cudaStream_t stream);
+
+// K8 (tile_backward.cu): per-pair gradients of K7's rgb and depth. dl_rgb
+// and c_fin (the bg-free colour rgb - t_fin * bg) are shaped as rgb,
+// dl_depth and t_fin as depth; grads (10, n_pairs) f32 in the pair table's
+// lane order, zeroed by the caller: the kernel writes the pairs each tile
+// reaches before its pixels are all frozen.
+cudaError_t tile_backward_launch(const float* pairs, long long n_pairs,
+                                 const int* starts, const int* ends,
+                                 int n_inst, int n_tiles_x, int n_tiles_y,
+                                 const float* dl_rgb, const float* dl_depth,
+                                 const float* c_fin, const float* t_fin,
+                                 float bg0, float bg1, float bg2,
+                                 float* grads, cudaStream_t stream);
 
 // K2: for each of the n_dirty entries, the tile tile_ids[k] of instance
 // inst_ids[k] is re-composited from pairs[starts[k], ends[k]) into rgb and

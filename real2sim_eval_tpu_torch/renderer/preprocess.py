@@ -4,8 +4,14 @@ Counterpart of the JAX package's renderer/preprocess.py (the
 ``preprocessCUDA`` semantics): z-threshold near cull, 3D covariance from
 scale + quaternion, EWA projection with the 1.3*tanfov clamp and the
 +0.3 px low-pass, 3-sigma radius with the 0.1 floor under the sqrt, SH ->
-clamped RGB. Every input may carry leading batch dims; ``w2c`` is (..., 4, 4)
-with the same leading dims.
+clamped RGB along the ray from the camera centre. Every input may carry
+leading batch dims; ``w2c`` is (..., 4, 4) with the same leading dims.
+
+Differentiable by autograd end to end (renderer/diff.py chains through
+it): no in-place op touches a tensor that may require grad. The clamps on
+depth, the frustum and the view-direction norm pass the whole cotangent
+at an exact tie where the JAX package passes half; those ties need a
+splat exactly at a clamp value, and the tests have none.
 """
 
 from __future__ import annotations
@@ -97,7 +103,16 @@ def preprocess_gaussians(cam: Camera, w2c: torch.Tensor, means3d, scales,
     lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
     radius = torch.ceil(3.0 * torch.sqrt(lam))
 
-    rgb = sh_to_rgb_clamped(sh_degree, shs)
+    dirs = None
+    if sh_degree > 0:
+        # view directions from the camera centre -R^T t (forward.cu:20-71)
+        R, t = w2c[..., :3, :3], w2c[..., :3, 3]
+        cam_pos = -(R[..., 0, :] * t[..., 0:1] + R[..., 1, :] * t[..., 1:2]
+                    + R[..., 2, :] * t[..., 2:3])
+        dirs = means3d - cam_pos[..., None, :]
+        dirs = dirs / torch.clamp(torch.linalg.vector_norm(
+            dirs, dim=-1, keepdim=True), min=1e-9)
+    rgb = sh_to_rgb_clamped(sh_degree, shs, dirs)
 
     valid = visible & det_ok & (opacities > 0.0)
     return {

@@ -1,12 +1,16 @@
 """Tile compositors: front-to-back splat blending per (instance, tile).
 
-Counterparts of three TPU kernels of the JAX package's
-renderer/tile_kernel.py, each a wrapper that launches a hand-written CUDA
-kernel for tensors on the card and runs the plain PyTorch version of the
-same function for tensors on the CPU:
+Counterparts of five TPU kernels of the JAX package (renderer/
+tile_kernel.py and renderer/diff.py), each a wrapper that launches a
+hand-written CUDA kernel for tensors on the card and runs the plain
+PyTorch version of the same function for tensors on the CPU:
 
   - K1 ``rasterize_tiles_batch`` (``csrc/tile_composite.cu``): every tile
     of every instance over a sorted pair table;
+  - K7 ``rasterize_tiles_batch_t`` (``csrc/tile_composite.cu``): K1 with
+    the final transmittance, the forward of the differentiable render;
+  - K8 ``composite_backward`` (``csrc/tile_backward.cu``): the per-pair
+    gradients of K7's outputs, its backward (renderer/diff.py);
   - K2 ``rasterize_tiles_sparse`` (``csrc/tile_sparse.cu``): only the
     dirty tiles of a list, over a merged pair table, on top of a copy of
     cached frames;
@@ -104,26 +108,49 @@ def rasterize_tiles_batch(pairs, tile_starts, tile_ends, n_tiles_x: int,
     pairs: (10, P) f32 [x, y, conic a/b/c, opacity, r, g, b, depth];
     tile_starts / tile_ends: (I, n_tiles) i32 pair ranges into P.
     Returns (rgb (I, 3, 8*n_tiles_y, 128*n_tiles_x), depth (I, Hp, Wp))."""
+    return _composite_all(pairs, tile_starts, tile_ends, n_tiles_x,
+                          n_tiles_y, bg, with_t=False)
+
+
+def _composite_all(pairs, tile_starts, tile_ends, n_tiles_x: int,
+                   n_tiles_y: int, bg, with_t: bool):
+    """K1 (``tile_composite``) or, with ``with_t``, K7
+    (``tile_composite_t``, which also returns the final transmittance)."""
     _check(pairs, tile_starts, tile_ends)
     if tile_starts.shape[1] != n_tiles_x * n_tiles_y:
         raise ValueError("tile_starts does not cover n_tiles_x * n_tiles_y")
     bg = tuple(float(b) for b in bg)
     if pairs.device.type != "cuda":
         return composite_tiles_plain(pairs, tile_starts, tile_ends,
-                                     n_tiles_x, n_tiles_y, bg)
+                                     n_tiles_x, n_tiles_y, bg, with_t=with_t)
     n_inst = tile_starts.shape[0]
     h_pad, w_pad = n_tiles_y * TILE_H, n_tiles_x * TILE_W
-    pairs = pairs.contiguous()
-    starts = tile_starts.contiguous()
-    ends = tile_ends.contiguous()
+    args = (pairs.contiguous(), tile_starts.contiguous(),
+            tile_ends.contiguous(), n_tiles_x, n_tiles_y, bg[0], bg[1], bg[2])
     rgb = torch.empty((n_inst, 3, h_pad, w_pad), dtype=torch.float32,
                       device=pairs.device)
     depth = torch.empty((n_inst, h_pad, w_pad), dtype=torch.float32,
                         device=pairs.device)
-    ext.load().tile_composite(pairs, starts, ends, n_tiles_x, n_tiles_y,
-                              bg[0], bg[1], bg[2], rgb, depth)
-    ext.LAUNCHES["tile_composite"] += 1
-    return rgb, depth
+    if not with_t:
+        ext.load().tile_composite(*args, rgb, depth)
+        ext.LAUNCHES["tile_composite"] += 1
+        return rgb, depth
+    t_fin = torch.empty_like(depth)
+    ext.load().tile_composite_t(*args, rgb, depth, t_fin)
+    ext.LAUNCHES["tile_composite_t"] += 1
+    return rgb, depth, t_fin
+
+
+def _tile_pixels(tiles, n_tiles_x: int):
+    """f32 pixel coordinates (px, py), each (n_g, 8, 128), of tiles[g]."""
+    dev, tiles = tiles.device, tiles.long()
+    shape = (tiles.shape[0], TILE_H, TILE_W)
+    px = ((tiles % n_tiles_x) * TILE_W)[:, None, None] + torch.arange(
+        TILE_W, device=dev)[None, None, :]
+    py = ((tiles // n_tiles_x) * TILE_H)[:, None, None] + torch.arange(
+        TILE_H, device=dev)[None, :, None]
+    return (px.to(torch.float32).expand(shape),
+            py.to(torch.float32).expand(shape))
 
 
 def _blend_tiles_plain(pairs, starts, ends, tiles, n_tiles_x: int):
@@ -132,14 +159,9 @@ def _blend_tiles_plain(pairs, starts, ends, tiles, n_tiles_x: int):
     one tensor op per pair slot across all (g, 8, 128) pixels.
     Returns (Cr, Cg, Cb, T, D), each (n_g, 8, 128)."""
     dev = pairs.device
-    starts, ends, tiles = starts.long(), ends.long(), tiles.long()
+    starts, ends = starts.long(), ends.long()
     n_g = starts.shape[0]
-    px = ((tiles % n_tiles_x) * TILE_W)[:, None, None] + torch.arange(
-        TILE_W, device=dev)[None, None, :]
-    py = ((tiles // n_tiles_x) * TILE_H)[:, None, None] + torch.arange(
-        TILE_H, device=dev)[None, :, None]
-    px = px.to(torch.float32).expand(n_g, TILE_H, TILE_W)
-    py = py.to(torch.float32).expand(n_g, TILE_H, TILE_W)
+    px, py = _tile_pixels(tiles, n_tiles_x)
 
     shape = (n_g, TILE_H, TILE_W)
     T = torch.ones(shape, dtype=torch.float32, device=dev)
@@ -178,23 +200,183 @@ def _blend_tiles_plain(pairs, starts, ends, tiles, n_tiles_x: int):
     return Cr, Cg, Cb, T, D
 
 
+def _to_image(v, n_inst: int, n_tiles_x: int, n_tiles_y: int):
+    """(I * n_tiles, 8, 128) tiles -> (I, Hp, Wp) frames."""
+    return (v.reshape(n_inst, n_tiles_y, n_tiles_x, TILE_H, TILE_W)
+            .permute(0, 1, 3, 2, 4)
+            .reshape(n_inst, n_tiles_y * TILE_H, n_tiles_x * TILE_W))
+
+
+def _to_tiles(v, n_tiles_x: int, n_tiles_y: int):
+    """(I, Hp, Wp) frames -> (I * n_tiles, 8, 128) tiles."""
+    return (v.reshape(-1, n_tiles_y, TILE_H, n_tiles_x, TILE_W)
+            .permute(0, 1, 3, 2, 4).reshape(-1, TILE_H, TILE_W))
+
+
 def composite_tiles_plain(pairs, tile_starts, tile_ends, n_tiles_x: int,
-                          n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
-    """Plain PyTorch version of K1."""
+                          n_tiles_y: int, bg=(0.0, 0.0, 0.0),
+                          with_t: bool = False):
+    """Plain PyTorch version of K1, and of K7 with ``with_t`` (the final
+    transmittance as a third output). Differentiable in ``pairs`` by
+    autograd."""
     n_inst, n_tiles = tile_starts.shape
     tiles = torch.arange(n_inst * n_tiles, device=pairs.device) % n_tiles
     Cr, Cg, Cb, T, D = _blend_tiles_plain(pairs, tile_starts.reshape(-1),
                                           tile_ends.reshape(-1), tiles,
                                           n_tiles_x)
 
-    def to_image(v):            # (n_g, 8, 128) -> (I, Hp, Wp)
-        return (v.reshape(n_inst, n_tiles_y, n_tiles_x, TILE_H, TILE_W)
-                .permute(0, 1, 3, 2, 4)
-                .reshape(n_inst, n_tiles_y * TILE_H, n_tiles_x * TILE_W))
+    def to_image(v):
+        return _to_image(v, n_inst, n_tiles_x, n_tiles_y)
 
     rgb = torch.stack([to_image(Cr + T * bg[0]), to_image(Cg + T * bg[1]),
                        to_image(Cb + T * bg[2])], dim=1)
+    if with_t:
+        return rgb, to_image(D), to_image(T)
     return rgb, to_image(D)
+
+
+# ---------------------------------------------------------------------------
+# K7: every tile, with the final transmittance
+# ---------------------------------------------------------------------------
+
+
+def rasterize_tiles_batch_t(pairs, tile_starts, tile_ends, n_tiles_x: int,
+                            n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
+    """``rasterize_tiles_batch`` plus the final transmittance: returns
+    (rgb (I, 3, Hp, Wp), depth (I, Hp, Wp), t_fin (I, Hp, Wp)), rgb and
+    depth bitwise K1's. t_fin is the backward's residual (renderer/
+    diff.py)."""
+    return _composite_all(pairs, tile_starts, tile_ends, n_tiles_x,
+                          n_tiles_y, bg, with_t=True)
+
+
+# ---------------------------------------------------------------------------
+# K8: the per-pair gradients of K7's outputs
+# ---------------------------------------------------------------------------
+
+
+def _check_frame(name, t, device, shape):
+    if t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {shape} float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, pairs on {device}")
+
+
+def composite_backward(pairs, tile_starts, tile_ends, dl_rgb, dl_depth,
+                       c_fin, t_fin, bg=(0.0, 0.0, 0.0)):
+    """Per-pair gradients of K7's (rgb, depth) by one front-to-back re-walk
+    of every tile (the suffix identity, csrc/tile_backward.cu).
+
+    pairs, tile_starts, tile_ends: K7's inputs; dl_rgb (I, 3, Hp, Wp) and
+    dl_depth (I, Hp, Wp): the cotangents of its outputs; c_fin: the
+    bg-free colour rgb - t_fin * bg, and t_fin: K7's transmittance.
+    Returns (10, P) f32 in the pair table's lane order [x, y, conic a/b/c,
+    opacity, r, g, b, depth]; a pair its tile never reaches (every pixel
+    frozen before it) has zero gradient."""
+    _check(pairs, tile_starts, tile_ends)
+    n_inst, n_tiles = tile_starts.shape
+    h_pad, w_pad = tuple(dl_depth.shape[-2:])
+    n_tiles_x, n_tiles_y = w_pad // TILE_W, h_pad // TILE_H
+    if n_tiles != n_tiles_x * n_tiles_y or h_pad % TILE_H or w_pad % TILE_W:
+        raise ValueError("the frames do not match the tile ranges")
+    for name, t, shape in (("dl_rgb", dl_rgb, (n_inst, 3, h_pad, w_pad)),
+                           ("dl_depth", dl_depth, (n_inst, h_pad, w_pad)),
+                           ("c_fin", c_fin, (n_inst, 3, h_pad, w_pad)),
+                           ("t_fin", t_fin, (n_inst, h_pad, w_pad))):
+        _check_frame(name, t, pairs.device, shape)
+    bg = tuple(float(b) for b in bg)
+    if pairs.device.type != "cuda":
+        return composite_backward_plain(pairs, tile_starts, tile_ends,
+                                        dl_rgb, dl_depth, c_fin, t_fin, bg)
+    grads = torch.zeros_like(pairs)
+    ext.load().tile_backward(pairs.contiguous(), tile_starts.contiguous(),
+                             tile_ends.contiguous(), n_tiles_x, n_tiles_y,
+                             dl_rgb.contiguous(), dl_depth.contiguous(),
+                             c_fin.contiguous(), t_fin.contiguous(), bg[0],
+                             bg[1], bg[2], grads)
+    ext.LAUNCHES["tile_backward"] += 1
+    return grads
+
+
+def _alpha_grad_gate(araw):
+    """Where d(alpha)/d(opacity, power) passes: the 0.99 clamp inactive."""
+    return araw < ALPHA_MAX
+
+
+def composite_backward_plain(pairs, tile_starts, tile_ends, dl_rgb,
+                             dl_depth, c_fin, t_fin, bg=(0.0, 0.0, 0.0)):
+    """Plain PyTorch version of K8: the forward's walk of
+    ``_blend_tiles_plain`` recomputing T and the prefix colour, one tensor
+    op per pair slot across all (tile, 8, 128) pixels, each pair's ten
+    gradient terms summed over its tile's pixels."""
+    dev = pairs.device
+    n_inst, n_tiles = tile_starts.shape
+    h_pad, w_pad = tuple(dl_depth.shape[-2:])
+    n_tiles_x, n_tiles_y = w_pad // TILE_W, h_pad // TILE_H
+    starts = tile_starts.reshape(-1).long()
+    ends = tile_ends.reshape(-1).long()
+    n_g = starts.shape[0]
+    px, py = _tile_pixels(torch.arange(n_g, device=dev) % n_tiles, n_tiles_x)
+
+    def tiles_of(v):
+        return _to_tiles(v, n_tiles_x, n_tiles_y)
+
+    dl = [tiles_of(dl_rgb[:, c]) for c in range(3)]
+    dld = tiles_of(dl_depth)
+    tf = tiles_of(t_fin)
+    cf = [tiles_of(c_fin[:, c]) + bg[c] * tf for c in range(3)]
+
+    shape = (n_g, TILE_H, TILE_W)
+    T = torch.ones(shape, dtype=torch.float32, device=dev)
+    P = [torch.zeros(shape, dtype=torch.float32, device=dev)
+         for _ in range(3)]
+    done = torch.zeros(shape, dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    grads = torch.zeros_like(pairs)
+    n_max = int((ends - starts).max()) if n_g else 0
+    for j in range(n_max):
+        idx = starts + j
+        in_range = idx < ends
+        a = pairs[:, torch.where(in_range, idx, torch.zeros_like(idx))]
+        a = a[:, :, None, None]                        # (10, n_g, 1, 1)
+        dx = a[0] - px
+        dy = a[1] - py
+        power = -0.5 * (a[2] * dx * dx + a[4] * dy * dy) - a[3] * dx * dy
+        gexp = torch.exp(power)
+        araw = a[5] * gexp
+        alpha = torch.minimum(torch.full_like(power, ALPHA_MAX), araw)
+        alpha = torch.where((power <= 0.0) & in_range[:, None, None], alpha,
+                            zero)
+        alpha_ok = alpha >= ALPHA_MIN
+        test_T = T * (1.0 - alpha)
+        would_done = alpha_ok & (test_T < T_EPS)
+        contrib = alpha_ok & ~would_done & ~done
+        aT = torch.where(contrib, alpha * T, zero)
+        P = [P[c] + aT * a[6 + c] for c in range(3)]
+        inv1 = 1.0 / (1.0 - alpha)
+        dal = torch.where(
+            contrib,
+            dl[0] * (a[6] * T - (cf[0] - P[0]) * inv1)
+            + dl[1] * (a[7] * T - (cf[1] - P[1]) * inv1)
+            + dl[2] * (a[8] * T - (cf[2] - P[2]) * inv1), zero)
+        gate = _alpha_grad_gate(araw)
+        dpow = torch.where(gate, dal * araw, zero)
+        dop = torch.where(gate, dal * gexp, zero)
+        crossing = contrib & (T > 0.5) & (test_T < 0.5)
+        terms = torch.stack([
+            dpow * (-(a[2] * dx + a[3] * dy)),
+            dpow * (-(a[4] * dy + a[3] * dx)),
+            dpow * (-0.5 * dx * dx),
+            dpow * (-dx * dy),
+            dpow * (-0.5 * dy * dy),
+            dop, dl[0] * aT, dl[1] * aT, dl[2] * aT,
+            torch.where(crossing, dld, zero)])         # (10, n_g, 8, 128)
+        g = terms.sum(dim=(2, 3))
+        grads[:, idx[in_range]] = g[:, in_range]
+        T = torch.where(contrib, test_T, T)
+        done = done | would_done
+    return grads
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,181 @@
+"""PLY I/O for Gaussian-splat scans, numpy only.
+
+Counterpart of the JAX package's utils/ply.py (its reader, loader, SH
+layout helpers and writer): the header is parsed once and the binary
+payload mapped as one structured numpy array. The JAX package's optional
+C++ reader (``native/``, via ctypes) is a host speed-up that the port
+does not carry.
+
+The on-disk layout is the standard 3DGS checkpoint: per-vertex
+``x y z [nx ny nz] f_dc_0..2 f_rest_0..44 opacity scale_0..2 rot_0..3``.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+_PLY_TO_NP = {
+    "float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
+    "int": "i4", "int32": "i4", "uint": "u4", "uint32": "u4",
+    "short": "i2", "int16": "i2", "ushort": "u2", "uint16": "u2",
+    "char": "i1", "int8": "i1", "uchar": "u1", "uint8": "u1",
+}
+
+
+def _read_header(f, path):
+    """Parse a PLY header; returns (format, [(element, count, props)])."""
+    if f.readline().strip() != b"ply":
+        raise ValueError(f"{path}: not a PLY file")
+    fmt = None
+    elements: list[tuple[str, int, list[tuple[str, str]]]] = []
+    while True:
+        line = f.readline()
+        if not line:
+            raise ValueError(f"{path}: unexpected EOF in header")
+        tokens = line.decode("ascii", "replace").strip().split()
+        if not tokens or tokens[0] == "comment":
+            continue
+        if tokens[0] == "format":
+            fmt = tokens[1]
+        elif tokens[0] == "element":
+            elements.append((tokens[1], int(tokens[2]), []))
+        elif tokens[0] == "property":
+            props = elements[-1][2]
+            if tokens[1] == "list":
+                props.append((tokens[-1], f"list:{tokens[2]}:{tokens[3]}"))
+            else:
+                props.append((tokens[2], _PLY_TO_NP[tokens[1]]))
+        elif tokens[0] == "end_header":
+            break
+    if fmt is None:
+        raise ValueError(f"{path}: missing format line")
+    return fmt, elements
+
+
+def read_ply_vertex_table(path: str | Path) -> dict[str, np.ndarray]:
+    """Read the ``vertex`` element of a PLY file into {property: (N,) array}."""
+    with open(path, "rb") as f:
+        fmt, elements = _read_header(f, path)
+        endian = "<" if "little" in fmt else ">"
+        for name, count, props in elements:
+            has_list = any(t.startswith("list:") for _, t in props)
+            if name == "vertex":
+                if has_list:
+                    raise ValueError("list properties unsupported on vertex "
+                                     "element")
+                if fmt == "ascii":
+                    data = np.atleast_2d(np.loadtxt(f, max_rows=count,
+                                                    dtype=np.float64))
+                    return {p: data[:, i] for i, (p, _) in enumerate(props)}
+                dtype = np.dtype([(p, endian + t) for p, t in props])
+                table = np.frombuffer(f.read(dtype.itemsize * count),
+                                      dtype=dtype, count=count)
+                return {p: np.ascontiguousarray(table[p]) for p, _ in props}
+            # skip a non-vertex element before the vertices
+            if fmt == "ascii":
+                for _ in range(count):
+                    f.readline()
+            elif has_list:
+                raise ValueError("cannot skip binary list element before "
+                                 "vertex")
+            else:
+                dtype = np.dtype([(p, endian + t) for p, t in props])
+                f.seek(dtype.itemsize * count, 1)
+    raise ValueError(f"{path}: no vertex element found")
+
+
+def read_ply_table(path: str | Path) -> tuple[dict[str, np.ndarray], int]:
+    """Raw vertex property table of a PLY: (name -> (N,) column, N)."""
+    t = read_ply_vertex_table(path)
+    return t, len(t["x"])
+
+
+_LOAD_CACHE: dict = {}
+
+
+def load_gaussian_ply(path: str | Path) -> dict[str, np.ndarray]:
+    """Load a 3DGS PLY into raw (pre-activation) splat parameters.
+
+    Keys (all float32): means3D (N, 3), sh_colors (N, 3*(D+1)^2: dc0..2,
+    then f_rest row-major), log_scales (N, 3), unnorm_rotations (N, 4),
+    logit_opacities (N, 1). Results are cached by (path, mtime); callers
+    must not mutate the returned arrays."""
+    key = (str(path), Path(path).stat().st_mtime_ns)
+    if key in _LOAD_CACHE:
+        return _LOAD_CACHE[key]
+    t, n = read_ply_table(path)
+    means = np.stack([t["x"], t["y"], t["z"]], axis=-1).astype(np.float32)
+
+    n_rest = len([k for k in t if k.startswith("f_rest_")])
+    sh = np.zeros((n, 3 + n_rest), dtype=np.float32)
+    for i in range(3):
+        sh[:, i] = t[f"f_dc_{i}"]
+    for i in range(n_rest):
+        sh[:, 3 + i] = t[f"f_rest_{i}"]
+
+    n_scale = len([k for k in t if k.startswith("scale_")])
+    scales = np.stack([t[f"scale_{i}"] for i in range(n_scale)],
+                      axis=-1).astype(np.float32)
+    if n_scale == 1:
+        scales = np.repeat(scales, 3, axis=-1)
+    rots = np.stack([t[f"rot_{i}"] for i in range(4)],
+                    axis=-1).astype(np.float32)
+    out = {
+        "means3D": means,
+        "sh_colors": sh,
+        "log_scales": scales,
+        "unnorm_rotations": rots,
+        "logit_opacities": np.asarray(t["opacity"], np.float32)[:, None],
+    }
+    _LOAD_CACHE[key] = out
+    return out
+
+
+def sh_colors_to_coeffs(sh_colors: np.ndarray) -> np.ndarray:
+    """(N, 3*(D+1)^2) flat layout -> (N, (D+1)^2, 3) coefficients: the
+    first 3 entries are the DC colour, the rest are stored (3, K) and
+    transposed to (K, 3) (the reference's gs_renderer.py:414-418)."""
+    n = sh_colors.shape[0]
+    dc = sh_colors[:, :3][:, None, :]
+    rest = sh_colors[:, 3:].reshape(n, 3, -1).transpose(0, 2, 1)
+    return np.concatenate([dc, rest], axis=1).astype(np.float32)
+
+
+def coeffs_to_sh_colors(coeffs: np.ndarray) -> np.ndarray:
+    """Inverse of ``sh_colors_to_coeffs``."""
+    n = coeffs.shape[0]
+    rest = coeffs[:, 1:, :].transpose(0, 2, 1).reshape(n, -1)
+    return np.concatenate([coeffs[:, 0, :], rest], axis=1).astype(np.float32)
+
+
+def save_gaussian_ply(params: dict[str, np.ndarray], path: str | Path) -> None:
+    """Write raw splat params to a binary-little-endian 3DGS PLY."""
+    means = np.asarray(params["means3D"], np.float32)
+    sh = np.asarray(params["sh_colors"], np.float32)
+    if sh.ndim == 3:
+        sh = coeffs_to_sh_colors(sh)
+    log_scales = np.asarray(params["log_scales"], np.float32)
+    rots = np.asarray(params["unnorm_rotations"], np.float32)
+    opac = np.asarray(params["logit_opacities"], np.float32).reshape(-1, 1)
+
+    names = (["x", "y", "z", "f_dc_0", "f_dc_1", "f_dc_2"]
+             + [f"f_rest_{i}" for i in range(sh.shape[1] - 3)]
+             + ["opacity", "scale_0", "scale_1", "scale_2",
+                "rot_0", "rot_1", "rot_2", "rot_3"])
+    table = np.empty(means.shape[0],
+                     dtype=np.dtype([(nm, "<f4") for nm in names]))
+    cols = np.concatenate([means, sh, opac, log_scales, rots], axis=1)
+    for i, nm in enumerate(names):
+        table[nm] = cols[:, i]
+
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {means.shape[0]}\n"
+              + "".join(f"property float {nm}\n" for nm in names)
+              + "end_header\n")
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(table.tobytes())

@@ -12,7 +12,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "real2sim_eval_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "real2sim_eval_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "real2sim_eval_tpu")
 
 
 def port_files():
@@ -25,7 +25,10 @@ def test_importing_the_port_loads_no_jax():
             "real2sim_eval_tpu_torch.parallel, real2sim_eval_tpu_torch.convert, "
             "real2sim_eval_tpu_torch.testing, real2sim_eval_tpu_torch.ext, "
             "real2sim_eval_tpu_torch.renderer.incremental, "
-            "real2sim_eval_tpu_torch.renderer.precull\n"
+            "real2sim_eval_tpu_torch.renderer.precull, "
+            "real2sim_eval_tpu_torch.renderer.diff, "
+            "real2sim_eval_tpu_torch.utils.ply, "
+            "real2sim_eval_tpu_torch.experiments.utils.refine_gs\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")
@@ -75,3 +78,42 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
                           torch.eye(4)[None])],
                         {"means3D": torch.zeros((1, 1, 3))}, 0)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_refinement_entry_points_need_the_card_unless_asked(monkeypatch,
+                                                             tmp_path):
+    import numpy as np
+
+    from real2sim_eval_tpu_torch.experiments.utils import refine_gs
+    from real2sim_eval_tpu_torch.renderer import (Camera, rasterize_diff,
+                                                  rasterize_diff_views)
+    from real2sim_eval_tpu_torch.utils.ply import save_gaussian_ply
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = 4
+    scene = (torch.zeros((n, 3)), torch.ones((n, 3)),
+             torch.tensor([[1.0, 0, 0, 0]]).expand(n, 4), torch.ones(n),
+             torch.zeros((n, 1, 3)))
+    cam = Camera(128, 8, 60.0, 60.0, 64.0, 4.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rasterize_diff(cam, torch.eye(4), *scene, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rasterize_diff_views(cam, torch.eye(4)[None], *scene, 0)
+    params = {"means3D": np.zeros((n, 3), np.float32),
+              "sh_colors": np.zeros((n, 3), np.float32),
+              "log_scales": np.zeros((n, 3), np.float32),
+              "unnorm_rotations": np.tile(np.float32([1, 0, 0, 0]), (n, 1)),
+              "logit_opacities": np.zeros((n, 1), np.float32)}
+    k = np.float32([[60, 0, 64], [0, 60, 4], [0, 0, 1]])
+    views = (k[None], np.eye(4, dtype=np.float32)[None],
+             np.zeros((1, 8, 128, 3), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        refine_gs.refine(params, *views, iters=1)
+    save_gaussian_ply(params, tmp_path / "s.ply")
+    np.savez(tmp_path / "v.npz", k=views[0], w2c=views[1], images=views[2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        refine_gs.main(["--ply", str(tmp_path / "s.ply"), "--views",
+                        str(tmp_path / "v.npz"), "--out",
+                        str(tmp_path / "o.ply"), "--iters", "1"])
+    _, hist = refine_gs.refine(params, *views, iters=1, device="cpu")
+    assert len(hist) == 1 and np.isfinite(hist[0])
