@@ -12,15 +12,24 @@ tiles of the fixed cameras by the sort merge and K2, the wrist camera
 through the pre-cull rules and K1), and again with the stream merge (K6).
 It checks that the render paths agree, and reports timings, a stage
 breakdown of one step and render, and each kernel's time beside its bound
-at the flagship's shapes. Then it drives the differentiable render (K7
+at the flagship's shapes. The same flagship then runs on the fine kernel
+family (``RasterConfig(kernel="fine")``: the dirty 8x16 fine tiles of the
+fixed cameras through the sort merge and K5, the wrist camera through the
+fine binning and K4), held bitwise to the fine full pipeline and within
+the JAX suite's bound to the wide frames, with its own breakdown and K4's
+and K5's times. Then it drives the differentiable render (K7
 forward, K8 backward) through the refinement tool ``refine`` on one scan
 of the flagship scene (130,120 gaussians, degree-3 SH, 8 views at
 848x480), after holding K7 and K8 against their plain versions and the
 gradients against autograd of the plain compositor, with broken backwards
-that must fail the gate. Every line of standard output is one JSON object
-(the first holds the card's ``nvidia-smi`` name and power limit); the last
-line is ``{"ok": true, "device": {...}}``. Any failed phase raises and
-exits non-zero without that line; so does a machine without a CUDA device.
+that must fail the gate. Each kernel's check on a small scene comes first
+(K1, K7, K8, K2, K6, K4, K5, K3). Every line of standard output is one
+JSON object (the first holds the card's ``nvidia-smi`` name and power
+limit); the last line is ``{"ok": true, "device": {...}}``. Any failed
+phase raises and exits non-zero without that line; so does a machine
+without a CUDA device. Every host-timed phase runs before the first
+``torch.profiler`` session; the device profiles come last, followed by
+the default path timed once more as a control.
 """
 
 from __future__ import annotations
@@ -41,6 +50,9 @@ N_TABLE = 99000
 N_OBJ_DENSE = 30000
 TIMED_STEPS = 20
 TIMED_STEPS_STREAM = 5
+TIMED_STEPS_FINE = 5
+# the default path timed once more after the device profiles (main)
+TIMED_STEPS_AFTER = 3
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
 # operations/s outside the tensor cores, for the kernels' least times
 PEAK_BYTES_S = 3.35e12
@@ -75,6 +87,12 @@ RGB_TOL = 2e-3
 # ([object, meshes, table] vs [dynamic; static]), so only equal-depth ties
 # may differ from the incremental branch (tests/test_incremental.py:306)
 BRANCH_RGB_TOL = 1e-5
+# the fine family cuts each splat at its 3-sigma rect of 8x16 tiles, the
+# wide one at its rect of 8x128 tiles: the JAX suite's bound between the
+# two families (tests/test_incremental_fine.py:172-174), rgb max and depth
+# (pixels over it counted against flips_limit, as every depth gate here)
+FAMILY_RGB_TOL = 2e-2
+FAMILY_DEPTH_TOL = 1e-2
 # K3 against its plain version, per case: max |x| (m), max |v| (m/s) and
 # the largest gap between the ropes' centres of mass (m). Each gate is a
 # small multiple of the gap measured on an H100 (PERF.md, Findings);
@@ -181,19 +199,24 @@ def capture(module, name: str):
 # ---------------------------------------------------------------------------
 
 
-def composite_both(pairs, starts, ends, n_tx, n_ty, chunk_inst=16):
-    """K1 and its plain version on the same inputs; the plain version runs
-    over instance chunks to bound its (tiles, 8, 128) working set."""
+def composite_both(pairs, starts, ends, n_tx, n_ty, chunk_inst=16,
+                   fine: bool = False):
+    """K1 (K4 if ``fine``; the grid in 8x128 tiles either way) and its
+    plain version on the same inputs; the plain version runs over instance
+    chunks to bound its (tiles, 8, tile width) working set."""
     import torch
 
-    from real2sim_eval_tpu_torch.renderer.tile_kernel import (
-        composite_tiles_plain, rasterize_tiles_batch)
+    from real2sim_eval_tpu_torch.renderer import fine_kernel as fk
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
 
-    rgb_k, dep_k = rasterize_tiles_batch(pairs, starts, ends, n_tx, n_ty)
+    kernel, plain = ((fk.rasterize_fine_batch, fk.composite_fine_plain)
+                     if fine else (tk.rasterize_tiles_batch,
+                                   tk.composite_tiles_plain))
+    rgb_k, dep_k = kernel(pairs, starts, ends, n_tx, n_ty)
     parts = []
     t_plain = 0.0
     for i in range(0, starts.shape[0], chunk_inst):
-        ms, out = time_host(lambda i=i: composite_tiles_plain(
+        ms, out = time_host(lambda i=i: plain(
             pairs, starts[i:i + chunk_inst], ends[i:i + chunk_inst], n_tx,
             n_ty))
         t_plain += ms
@@ -204,29 +227,28 @@ def composite_both(pairs, starts, ends, n_tx, n_ty, chunk_inst=16):
 
 
 def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
-                     chunk: int = 16 * 420) -> tuple[int, int]:
+                     tile_w: int = 128) -> tuple[int, int]:
     """Sum over pixels of the pairs each pixel blends before it is done,
     the pair that finishes it included: the compositor's work on this
     input, whatever order a kernel does it in; and of those, the pairs
-    that contribute (the backward's gradient terms). Tile ``tiles[g]``
-    walks pairs[starts[g]:ends[g]] (flat lists). Same tests as
+    that contribute (the backward's gradient terms). Tile ``tiles[g]`` of
+    a grid n_tx tiles of 8 x tile_w pixels wide (8x128, or the 8x16 fine
+    tiles) walks pairs[starts[g]:ends[g]] (flat lists). Same tests as
     ``tile_kernel._blend_tiles_plain``. Returns (walks, contributions)."""
     import torch
 
     from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
 
     dev = pairs.device
+    chunk = 16 * 420 * 128 // tile_w          # tiles of 860,160 pixels
     total = torch.zeros((), dtype=torch.int64, device=dev)
     contribs = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(0, starts.shape[0], chunk):
         s = starts[i:i + chunk].long()
         e = ends[i:i + chunk].long()
         t = tiles[i:i + chunk].long()
-        px = (((t % n_tx) * tk.TILE_W)[:, None, None]
-              + torch.arange(tk.TILE_W, device=dev)[None, None, :]).float()
-        py = (((t // n_tx) * tk.TILE_H)[:, None, None]
-              + torch.arange(tk.TILE_H, device=dev)[None, :, None]).float()
-        T = torch.ones((s.shape[0], tk.TILE_H, tk.TILE_W), device=dev)
+        px, py = tk._tile_pixels(t, n_tx, tile_w)
+        T = torch.ones((s.shape[0], tk.TILE_H, tile_w), device=dev)
         done = torch.zeros_like(T, dtype=torch.bool)
         for j in range(int((e - s).max()) if s.numel() else 0):
             in_range = (s + j < e)[:, None, None]
@@ -263,11 +285,12 @@ def k1_bound_ms(pairs, starts, rgb, walks: int) -> tuple[float, str]:
 
 
 def sparse_bound_ms(rows_read: int, n_tables: int, n_dirty: int,
-                    walks: int) -> tuple[float, str]:
-    """K2/K6: the pair rows read (10 f32 each), the dirty-list tables (i32)
-    and the dirty tiles written (rgb + depth, 8x128 f32 each)."""
+                    walks: int, tile_w: int = 128) -> tuple[float, str]:
+    """K2/K6/K5: the pair rows read (10 f32 each), the dirty-list tables
+    (i32) and the dirty tiles written (rgb + depth, 8 x tile_w f32
+    each)."""
     return bound_ms(rows_read * 40 + n_tables * n_dirty * 4
-                    + n_dirty * 8 * 128 * 4 * 4, walks)
+                    + n_dirty * 8 * tile_w * 4 * 4, walks)
 
 
 def k3_bound_ms(opts, tab, state) -> tuple[float, str]:
@@ -290,14 +313,15 @@ def k3_bound_ms(opts, tab, state) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def small_flagship_bins():
+def small_flagship_bins(fine: bool = False):
     """One 848x480 instance of a 20k-gaussian scene (flagship layout, cut
-    to 20,000 gaussians) through preprocess and binning: (bins, n_tx,
-    n_ty, gaussians)."""
+    to 20,000 gaussians) through preprocess and binning, wide or ``fine``:
+    (bins, n_tx, n_ty, gaussians), the grid in 8x128 tiles."""
     import torch
 
     from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
-    from real2sim_eval_tpu_torch.renderer.binning import bin_gaussians
+    from real2sim_eval_tpu_torch.renderer.binning import (bin_gaussians,
+                                                          bin_gaussians_fine)
     from real2sim_eval_tpu_torch.renderer.preprocess import \
         preprocess_gaussians
     from real2sim_eval_tpu_torch.testing import make_flagship_assets
@@ -312,8 +336,9 @@ def small_flagship_bins():
                                scenes["rotations"], scenes["opacities"],
                                scenes["shs"], 0)
     n_tx, n_ty = -(-cam.width // 128), -(-cam.height // 8)
-    return (bin_gaussians(pre, n_tx, n_ty, 128, 8), n_tx, n_ty,
-            int(scenes["means3D"].shape[1]))
+    bins = (bin_gaussians_fine(pre, n_tx, n_ty) if fine
+            else bin_gaussians(pre, n_tx, n_ty, 128, 8))
+    return bins, n_tx, n_ty, int(scenes["means3D"].shape[1])
 
 
 def check_k1_small():
@@ -744,8 +769,9 @@ def check_k3_loop():
 
 
 def check_reference():
-    """The tile pipeline (K1) against the dense reference compositor on a
-    small random scene, on the card."""
+    """The tile pipeline (K1, and K4 with ``kernel="fine"``) against the
+    dense reference compositor gated at the same tiles, on a small random
+    scene, on the card."""
     import torch
 
     from real2sim_eval_tpu_torch.renderer import Camera, RasterConfig, rasterize
@@ -761,15 +787,39 @@ def check_reference():
         rng.uniform(0.1, 1.0, n), rng.uniform(-0.5, 0.5, (n, 1, 3)))]
     cam = Camera(width=256, height=64, fx=80.0, fy=80.0, cx=128.0, cy=32.0)
     eye = torch.eye(4, device=DEVICE)
-    rgb_k, dep_k = rasterize(cam, eye, *args, 0, device=DEVICE)
-    rgb_r, dep_r = rasterize(cam, eye, *args, 0, device=DEVICE,
-                             config=RasterConfig(backend="reference"))
-    err = float((rgb_k - rgb_r).abs().max())
-    flips = depth_flips(dep_k, dep_r)
-    emit({"phase": "reference_check", "gaussians": n, "max_abs_rgb": err,
-          "depth_flips": flips})
-    if err > RGB_TOL or flips > flips_limit(dep_k.numel()):
-        fail("tile pipeline disagrees with the dense reference")
+    for kernel in ("wide", "fine"):
+        rgb_k, dep_k = rasterize(cam, eye, *args, 0, device=DEVICE,
+                                 config=RasterConfig(kernel=kernel))
+        rgb_r, dep_r = rasterize(cam, eye, *args, 0, device=DEVICE,
+                                 config=RasterConfig(backend="reference",
+                                                     kernel=kernel))
+        err = float((rgb_k - rgb_r).abs().max())
+        flips = depth_flips(dep_k, dep_r)
+        emit({"phase": "reference_check", "kernel": kernel, "gaussians": n,
+              "max_abs_rgb": err, "depth_flips": flips})
+        if err > RGB_TOL or flips > flips_limit(dep_k.numel()):
+            fail(f"the {kernel} tile pipeline disagrees with the dense "
+                 "reference")
+
+
+def gate_vs_plain(phase: str, out: dict, kern, plain, mutant) -> None:
+    """Adds the max |rgb| and depth flips of a kernel's frames (rgb,
+    depth) against its plain version's, and of a broken kernel's, to
+    ``out``; emits it; fails unless the kernel passes the gates and the
+    broken one does not."""
+    limit = flips_limit(kern[1].numel())
+    out.update({"max_abs_rgb": float((kern[0] - plain[0]).abs().max()),
+                "depth_flips": depth_flips(kern[1], plain[1]),
+                "rgb_tol": RGB_TOL, "flips_limit": limit,
+                "mutant_no_op": {
+                    "max_abs_rgb": float((mutant[0] - plain[0]).abs().max()),
+                    "depth_flips": depth_flips(mutant[1], plain[1])}})
+    emit(out)
+    if out["max_abs_rgb"] > RGB_TOL or out["depth_flips"] > limit:
+        fail(f"{phase}: the kernel disagrees with its plain version")
+    mut = out["mutant_no_op"]
+    if mut["max_abs_rgb"] <= RGB_TOL and mut["depth_flips"] <= limit:
+        fail(f"{phase}: a no-op kernel would pass the gates")
 
 
 def check_k2_k6_small():
@@ -801,24 +851,60 @@ def check_k2_k6_small():
         finally:
             undo()
         args = seen["args"]
-        rgb_k, dep_k = getattr(tk, name)(*args)
-        rgb_p, dep_p = plain(*args)
-        rgb_m, dep_m = tk.copy_frames(args[-5], args[-4])
-        limit = flips_limit(dep_k.numel())
-        out = {"phase": phase, "envs": B, "cameras": 2,
-               "dirty_tiles": int(args[at_inst].numel()),
-               "max_abs_rgb": float((rgb_k - rgb_p).abs().max()),
-               "depth_flips": depth_flips(dep_k, dep_p),
-               "rgb_tol": RGB_TOL, "flips_limit": limit,
-               "mutant_no_op": {
-                   "max_abs_rgb": float((rgb_m - rgb_p).abs().max()),
-                   "depth_flips": depth_flips(dep_m, dep_p)}}
-        emit(out)
-        if out["max_abs_rgb"] > RGB_TOL or out["depth_flips"] > limit:
-            fail(f"{phase}: the kernel disagrees with its plain version")
-        mut = out["mutant_no_op"]
-        if mut["max_abs_rgb"] <= RGB_TOL and mut["depth_flips"] <= limit:
-            fail(f"{phase}: a no-op kernel would pass the gates")
+        gate_vs_plain(phase, {"phase": phase, "envs": B, "cameras": 2,
+                              "dirty_tiles": int(args[at_inst].numel())},
+                      getattr(tk, name)(*args), plain(*args),
+                      tk.copy_frames(args[-5], args[-4]))
+
+
+def check_k4_small():
+    """K4 against its plain version on small_flagship_bins' scene, fine
+    binned. The no-op mutant composites nothing (every fine tile's range
+    empty: the background everywhere)."""
+    from real2sim_eval_tpu_torch.renderer import fine_kernel as fk
+
+    bins, n_tx, n_ty, n = small_flagship_bins(fine=True)
+    args = (bins["pair_attrs"], bins["tile_starts"], bins["tile_ends"], n_tx,
+            n_ty)
+    mutant = fk.rasterize_fine_batch(args[0], args[1], args[1], n_tx, n_ty)
+    gate_vs_plain("k4_check", {
+        "phase": "k4_check", "gaussians": n,
+        "fine_tiles": int(bins["tile_starts"].numel()),
+        "pairs": int(bins["pair_attrs"].shape[1])},
+        fk.rasterize_fine_batch(*args), fk.composite_fine_plain(*args),
+        mutant)
+
+
+def check_k5_small():
+    """K5 against its plain version on check_k2_k6_small's split scene (4
+    envs, both fixed cameras): the kernel's inputs are those of one fine
+    incremental render. A no-op mutant (the cached frames returned
+    unchanged) must land over the gates."""
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.renderer import (RasterConfig,
+                                                  incremental_fine)
+    from real2sim_eval_tpu_torch.renderer import fine_kernel as fk
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+
+    B = 4
+    a = make_flagship_assets(batch=B, n_table=15000, n_obj_dense=3880,
+                             device=DEVICE)
+    ev = BatchedEvaluator(a, list(range(B)), device=DEVICE,
+                          raster_config=RasterConfig(incremental="on",
+                                                     kernel="fine"))
+    seen, undo = capture(incremental_fine, "rasterize_fine_sparse")
+    try:
+        ev.render()
+    finally:
+        undo()
+    args = seen["args"]
+    gate_vs_plain("k5_check", {
+        "phase": "k5_check", "envs": B, "cameras": 2,
+        "dirty_fine_tiles": int(args[1].numel()),
+        "dirty_supertiles": int(ev.render_telemetry[0][..., 0].sum())},
+        fk.rasterize_fine_sparse(*args), fk.composite_fine_sparse_plain(*args),
+        tk.copy_frames(args[5], args[6]))
 
 
 # ---------------------------------------------------------------------------
@@ -849,7 +935,7 @@ def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
     sync()
     torch.cuda.reset_peak_memory_stats()
     ext.reset_launch_counts()
-    phys, rend, dirty, merged, kept = [], [], [], [], []
+    phys, rend, dirty, merged, kept, fine = [], [], [], [], [], []
     for _ in range(steps):
         ms, _ = time_host(lambda: ev.step(actions))
         phys.append(ms)
@@ -858,6 +944,7 @@ def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
         dirty.append(ev.render_telemetry[0][..., 0])
         merged.append(ev.render_stats.get("merged_pairs", 0))
         kept.append(ev.render_stats.get("wrist_static_blocks"))
+        fine.append(ev.render_stats.get("dirty_fine_tiles"))
     launches = dict(ext.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -873,6 +960,8 @@ def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
     dirty = torch.stack(dirty).float()               # (steps, n_cams, B)
     kept = [k for k in kept if k is not None]
     kept = torch.stack(kept).float() if kept else None
+    fine = [f for f in fine if f is not None]
+    fine = torch.stack(fine).float() if fine else None
     out = {"phase": phase, "envs": B_FLAGSHIP,
            "gaussians_per_env": int(ev.compose_scenes()["means3D"].shape[1]),
            "cameras": "2 fixed + 1 wrist, 848x480",
@@ -884,10 +973,16 @@ def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
            "total_ms": total, "env_steps_per_s": B_FLAGSHIP / (total / 1e3),
            "physics_ms_each": phys, "render_ms_each": rend,
            "max_memory_allocated_bytes": int(peak),
+           # 8x128 tiles; on the fine family the dirty supertiles
            "dirty_tiles_per_camera": {
                "mean": dirty.mean(dim=(0, 2)).tolist(),
                "max": dirty.amax(dim=(0, 2)).tolist(),
                "tiles": 60 * 7},
+           "dirty_fine_tiles_per_camera": (
+               None if fine is None
+               else {"mean": fine.mean(dim=(0, 2)).tolist(),
+                     "max": fine.amax(dim=(0, 2)).tolist(),
+                     "fine_tiles": 60 * 7 * 8}),
            "merged_pairs_per_render": {"mean": float(np.mean(merged)),
                                        "max": int(np.max(merged))},
            "wrist_cull": ev.wrist_cull,
@@ -945,6 +1040,82 @@ def run_flagship_stream(ev, actions):
         ("spring_mass_step", "tile_sparse_merge", "tile_composite"),
         time.perf_counter() - t0)
     return ev_s, launches
+
+
+def run_flagship_fine(ev, actions):
+    """The same flagship on the fine family (``RasterConfig(kernel=
+    "fine")``: the fixed cameras' dirty fine tiles through the sort merge
+    and K5, the wrist camera through the fine full pipeline and K4), from
+    the state the default path ended in."""
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.renderer import RasterConfig
+
+    t0 = time.perf_counter()
+    ev_f = BatchedEvaluator(ev.assets, list(range(B_FLAGSHIP)), device=DEVICE,
+                            raster_config=RasterConfig(kernel="fine"))
+    ev_f.state = ev.state
+    launches, out = run_path(
+        "flagship_fine", ev_f, actions, TIMED_STEPS_FINE,
+        ("spring_mass_step", "fine_sparse", "fine_composite"),
+        time.perf_counter() - t0)
+    return ev_f, launches, out
+
+
+def fine_render_parity(ev, ev_f):
+    """On one flagship state: the fine family's fixed frames bitwise the
+    fine full pipeline's on the [dynamic; static] scene (one camera at a
+    time, to bound the pair table), and the fine frames against the wide
+    ones within FAMILY_RGB_TOL and FAMILY_DEPTH_TOL (pixels over it
+    counted against the flip limit), fixed and wrist cameras."""
+    import torch
+
+    from real2sim_eval_tpu_torch.renderer import RasterConfig, rasterize_batch
+
+    st = ev_f.state
+    outs = {}
+    for name, e in (("wide", ev), ("fine", ev_f)):
+        e.state = st
+        outs[name] = e.render()
+    B = B_FLAGSHIP
+    dyn, _ = ev_f.compose_dyn(st, dc_only=ev_f.sh_deg == 0)
+    scene = {k: torch.cat([dyn[k], ev_f._static[k][None].expand(
+        (B,) + ev_f._static[k].shape)], dim=1) for k in dyn}
+    fixed_diff = []
+    for c, (cam, w2c) in enumerate(ev_f._fixed_cams):
+        rgb, depth = rasterize_batch(
+            [(cam, torch.as_tensor(w2c, device=DEVICE)[None].expand(B, 4, 4))],
+            scene, ev_f.sh_deg, config=RasterConfig(kernel="fine"),
+            device=DEVICE)
+        fixed_diff.append(int(((outs["fine"][0][:, c] != rgb[0]).any(dim=1)
+                               | (outs["fine"][1][:, c] != depth[0])).sum()))
+    del scene
+
+    def family_gap(i_rgb: int, i_dep: int) -> dict:
+        a, b = outs["fine"], outs["wide"]
+        return {"max_abs_rgb": float((a[i_rgb] - b[i_rgb]).abs().max()),
+                "max_abs_depth": float((a[i_dep] - b[i_dep]).abs().max()),
+                "depth_pixels_over_tol": int(
+                    ((a[i_dep] - b[i_dep]).abs() > FAMILY_DEPTH_TOL).sum()),
+                "flips_limit": flips_limit(a[i_dep].numel()),
+                "differing_pixels": int(((a[i_rgb] != b[i_rgb]).any(dim=2)
+                                         | (a[i_dep] != b[i_dep])).sum())}
+
+    out = {"phase": "fine_render_parity",
+           "fine_incremental_vs_fine_full_differing_pixels": fixed_diff,
+           "fine_vs_wide": {"fixed": family_gap(0, 1),
+                            "wrist": family_gap(2, 3)},
+           "rgb_tol": FAMILY_RGB_TOL, "depth_tol": FAMILY_DEPTH_TOL}
+    emit(out)
+    if any(fixed_diff):
+        fail(f"the fine incremental frames differ from the fine full "
+             f"pipeline: {fixed_diff}")
+    for part in out["fine_vs_wide"].values():
+        if (part["max_abs_rgb"] > FAMILY_RGB_TOL
+                or part["depth_pixels_over_tol"] > part["flips_limit"]):
+            fail(f"the fine frames leave the bound to the wide ones: {out}")
+        if not part["differing_pixels"]:
+            fail("the fine and wide frames are identical: the fine family "
+                 "did not render")
 
 
 def render_parity(ev, ev_s):
@@ -1039,73 +1210,106 @@ def render_parity(ev, ev_s):
              f"{part}")
 
 
-def stage_breakdown(ev, ev_s, actions, total_ms: float):
-    """Where a flagship control step and render spend their time.
+def stage_timer(acc: dict, label: str):
+    """A ``patch`` maker: the wrapped call adds its synchronised host ms to
+    acc[label]."""
+    def make(orig):
+        def wrapper(*args, **kwargs):
+            ms, out = time_host(lambda: orig(*args, **kwargs))
+            acc[label] = acc.get(label, 0.0) + ms
+            return out
+        return wrapper
+    return make
 
-    One more step and render of the default path, and one more render of
-    the stream path, with a synchronising host timer around each stage
-    (nested stages count inside their parents: the IK runs in the mimic
-    and in compose_dyn, the LBS in compose_dyn, the cache copy in K2/K6,
-    the pre-cull, preprocess, binning and K1 in the wrist pipeline), then
-    one more step and render under ``torch.profiler`` for the device's busy
-    share and its heaviest operations."""
-    import torch
 
+def stages(e) -> list:
+    """(object, attribute, label) of every timed stage of evaluator e's
+    step and render, both kernel families; a stage a path does not run
+    stays out of its breakdown."""
     from real2sim_eval_tpu_torch.physics import fused_step
-    from real2sim_eval_tpu_torch.renderer import (incremental, lbs, precull,
-                                                  raster, tile_kernel)
+    from real2sim_eval_tpu_torch.renderer import (fine_kernel, incremental,
+                                                  incremental_fine, lbs,
+                                                  precull, raster,
+                                                  tile_kernel)
 
-    def timer(acc, label):
-        def make(orig):
-            def wrapper(*args, **kwargs):
-                ms, out = time_host(lambda: orig(*args, **kwargs))
-                acc[label] = acc.get(label, 0.0) + ms
-                return out
-            return wrapper
-        return make
+    return [(e, "_mimic", "mimic (IK + FK)"), (e, "_ik", "IK"),
+            (e, "_env_pre", "grasp + controls"),
+            (fused_step, "freeze", "freezes"),
+            (fused_step, "spring_mass_step", "K3 spring_mass_step"),
+            (e, "compose_dyn", "compose_dyn"),
+            (lbs, "interpolate_motions", "LBS"),
+            (incremental, "bin_dynamic", "dynamic preprocess + binning"),
+            (incremental, "merge_segments", "merge (sort)"),
+            (incremental_fine, "merge_segments", "merge (sort)"),
+            (tile_kernel, "copy_frames", "cache copy"),
+            (fine_kernel, "copy_frames", "cache copy"),
+            (incremental, "rasterize_tiles_sparse",
+             "K2 tile_sparse (incl. cache copy)"),
+            (incremental, "rasterize_tiles_sparse_merge",
+             "K6 tile_sparse_merge (incl. cache copy)"),
+            (incremental_fine, "rasterize_fine_sparse",
+             "K5 fine_sparse (incl. cache copy)"),
+            (e, "render_wrist", "wrist pipeline"),
+            (precull, "cull_static_blocks", "precull static"),
+            (precull, "cull_dynamic_blocks", "precull dynamic"),
+            (raster, "preprocess_gaussians", "wrist preprocess"),
+            (raster, "bin_gaussians", "wrist binning"),
+            (raster, "bin_gaussians_fine", "wrist binning (fine)"),
+            (raster, "rasterize_tiles_batch", "K1 tile_composite"),
+            (raster, "rasterize_fine_batch", "K4 fine_composite")]
 
-    def stages(e):
-        return [(e, "_mimic", "mimic (IK + FK)"), (e, "_ik", "IK"),
-                (e, "_env_pre", "grasp + controls"),
-                (fused_step, "freeze", "freezes"),
-                (fused_step, "spring_mass_step", "K3 spring_mass_step"),
-                (e, "compose_dyn", "compose_dyn"),
-                (lbs, "interpolate_motions", "LBS"),
-                (incremental, "bin_dynamic", "dynamic preprocess + binning"),
-                (incremental, "merge_segments", "merge (sort)"),
-                (tile_kernel, "copy_frames", "cache copy"),
-                (incremental, "rasterize_tiles_sparse",
-                 "K2 tile_sparse (incl. cache copy)"),
-                (incremental, "rasterize_tiles_sparse_merge",
-                 "K6 tile_sparse_merge (incl. cache copy)"),
-                (e, "render_wrist", "wrist pipeline"),
-                (precull, "cull_static_blocks", "precull static"),
-                (precull, "cull_dynamic_blocks", "precull dynamic"),
-                (raster, "preprocess_gaussians", "wrist preprocess"),
-                (raster, "bin_gaussians", "wrist binning"),
-                (raster, "rasterize_tiles_batch", "K1 tile_composite")]
 
-    def timed(e, acc, fn):
-        undo = [patch(obj, name, timer(acc, label))
-                for obj, name, label in stages(e)]
-        try:
-            return time_host(fn)[0]
-        finally:
-            for u in reversed(undo):
-                u()
+def timed_stages(e, acc: dict, fn) -> float:
+    """``fn`` with every stage of ``stages(e)`` timed into acc; its own
+    synchronised host ms."""
+    undo = [patch(obj, name, stage_timer(acc, label))
+            for obj, name, label in stages(e)]
+    try:
+        return time_host(fn)[0]
+    finally:
+        for u in reversed(undo):
+            u()
 
+
+def stage_breakdown(ev, ev_s, actions):
+    """Where a flagship control step and render spend their time: one more
+    step and render of the default path, and one more render of the stream
+    path, with a synchronising host timer around each stage (nested stages
+    count inside their parents: the IK runs in the mimic and in
+    compose_dyn, the LBS in compose_dyn, the cache copy in K2/K6, the
+    pre-cull, preprocess, binning and K1 in the wrist pipeline)."""
     acc, acc_s = {}, {}
-    step_ms = timed(ev, acc, lambda: ev.step(actions))
-    render_ms = timed(ev, acc, ev.render)
-    stream_render_ms = timed(ev_s, acc_s, ev_s.render)
-
-    prof = device_profile(lambda: (ev.step(actions), ev.render()))
+    step_ms = timed_stages(ev, acc, lambda: ev.step(actions))
+    render_ms = timed_stages(ev, acc, ev.render)
+    stream_render_ms = timed_stages(ev_s, acc_s, ev_s.render)
     emit({"phase": "breakdown", "step_ms": step_ms, "render_ms": render_ms,
           "stages_ms": acc, "stream_render_ms": stream_render_ms,
-          "stream_render_stages_ms": acc_s, **prof,
-          # over the unprofiled flagship step + render (the profiler slows
-          # the host, not the device)
-          "device_busy_share": prof["device_ms"] / total_ms})
+          "stream_render_stages_ms": acc_s})
+
+
+def fine_breakdown(ev_f, actions):
+    """stage_breakdown for the fine family: one more step and render with
+    each stage timed."""
+    acc = {}
+    step_ms = timed_stages(ev_f, acc, lambda: ev_f.step(actions))
+    render_ms = timed_stages(ev_f, acc, ev_f.render)
+    emit({"phase": "breakdown_fine", "step_ms": step_ms,
+          "render_ms": render_ms, "stages_ms": acc})
+
+
+def device_profiles(runs) -> None:
+    """The device's busy share and heaviest operations of each path: for
+    each (path, fn, timed units in fn, the unit's unprofiled ms) one
+    ``device_profile`` of fn. They run after every host-timed phase: host
+    work timed after a ``torch.profiler`` session in the same process can
+    run slower (PERF.md, Findings), so only the control path that measures
+    that follows them."""
+    for path, fn, n_units, unit_ms in runs:
+        prof = device_profile(fn)
+        emit({"phase": "device_profile", "path": path, **prof,
+              # over the unprofiled unit (the profiler slows the host, not
+              # the device)
+              "device_busy_share": prof["device_ms"] / n_units / unit_ms})
 
 
 def device_profile(fn) -> dict:
@@ -1271,6 +1475,93 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     return kernels
 
 
+def measure_fine_kernels(ev_f, actions, launches_f):
+    """K4 and K5 at the fine flagship's shapes: their inputs captured from
+    one more step and render (K4: the wrist's fine full pipeline; K5: the
+    fixed cameras' dirty fine tiles), then each kernel, its plain version
+    and the least time the card could take. K5's time is of the kernel
+    alone, into preallocated frames (no cache copy)."""
+    import torch
+
+    from real2sim_eval_tpu_torch import ext
+    from real2sim_eval_tpu_torch.renderer import fine_kernel as fk
+    from real2sim_eval_tpu_torch.renderer import incremental_fine, raster
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    k4_seen, undo4 = capture(raster, "rasterize_fine_batch")
+    k5_seen, undo5 = capture(incremental_fine, "rasterize_fine_sparse")
+    try:
+        ev_f.step(actions)
+        ev_f.render()
+    finally:
+        undo5()
+        undo4()
+    sync()
+    lib = ext.load()
+
+    pairs, starts, ends, nsx, nsy = k4_seen["args"][:5]
+    k4_ms = time_cuda(lambda: fk.rasterize_fine_batch(pairs, starts, ends,
+                                                      nsx, nsy), 10)
+    rgb_k, dep_k, rgb_p, dep_p, k4_plain_ms = composite_both(
+        pairs, starts, ends, nsx, nsy, fine=True)
+    tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
+    walks, _ = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
+                                tiles, nsx * 8, tile_w=16)
+    k4_bound, k4_by = k1_bound_ms(pairs, starts, rgb_k, walks)
+    k4 = {"name": "fine_composite", "route": "cuda",
+          "source": "real2sim_eval_tpu_torch/csrc/fine_composite.cu",
+          "replaces": "real2sim_eval_tpu/renderer/fine_kernel.py:78",
+          "launches": launches_f["fine_composite"],
+          "max_abs_err": float((rgb_k - rgb_p).abs().max()),
+          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+          "bound_by": k4_by, "library_ms": None}
+    flips = {"fine_composite": depth_flips(dep_k, dep_p)}
+    limits = {"fine_composite": flips_limit(dep_k.numel())}
+    per_inst = (ends - starts).sum(dim=1).float()
+    inputs = {"fine_composite": {
+        "instances": int(starts.shape[0]), "fine_tiles": int(starts.numel()),
+        "pairs": int(pairs.shape[1]),
+        "pairs_per_wrist_instance": {"mean": float(per_inst.mean()),
+                                     "max": int(per_inst.max())},
+        "longest_fine_tile": int((ends - starts).max()),
+        "pixel_pair_blends": walks}}
+
+    args5 = k5_seen["args"]
+    m_pairs, inst, tile, m_st, m_en, rgb_c, dep_c, nsx5, nsy5, bg = args5
+    rgb_o, dep_o = tk.copy_frames(rgb_c, dep_c)
+    k5_ms = time_cuda(lambda: lib.fine_sparse(
+        m_pairs, inst, tile, m_st, m_en, nsx5 * 8, nsy5, *bg, rgb_o, dep_o),
+        10)
+    rgb_k, dep_k = fk.rasterize_fine_sparse(*args5)
+    k5_plain_ms, (rgb_p, dep_p) = time_host(
+        lambda: fk.composite_fine_sparse_plain(*args5))
+    walks, _ = pixel_pair_walks(m_pairs, m_st, m_en, tile, nsx5 * 8,
+                                tile_w=16)
+    rows = int((m_en - m_st).sum())
+    k5_bound, k5_by = sparse_bound_ms(rows, 4, int(inst.numel()), walks,
+                                      tile_w=16)
+    k5 = {"name": "fine_sparse", "route": "cuda",
+          "source": "real2sim_eval_tpu_torch/csrc/fine_sparse.cu",
+          "replaces": "real2sim_eval_tpu/renderer/incremental_fine.py:218",
+          "launches": launches_f["fine_sparse"],
+          "max_abs_err": float((rgb_k - rgb_p).abs().max()),
+          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
+          "bound_by": k5_by, "library_ms": None}
+    flips["fine_sparse"] = depth_flips(dep_k, dep_p)
+    limits["fine_sparse"] = flips_limit(dep_k.numel())
+    inputs["fine_sparse"] = {"instances": int(rgb_k.shape[0]),
+                             "dirty_fine_tiles": int(inst.numel()),
+                             "merged_pairs": rows,
+                             "pixel_pair_blends": walks}
+    emit({"phase": "fine_kernel_inputs", "depth_flips": flips,
+          "flips_limits": limits, **inputs})
+    for k in (k4, k5):
+        if (k["max_abs_err"] > RGB_TOL
+                or flips[k["name"]] > limits[k["name"]]):
+            fail(f"{k['name']} disagrees at the main path's shapes: {k}")
+    return [k4, k5]
+
+
 # ---------------------------------------------------------------------------
 # the refinement path
 # ---------------------------------------------------------------------------
@@ -1331,7 +1622,8 @@ def run_refinement():
     read just after; the loss must fall and K7 and K8 launch every
     iteration. Then REFINE_GEOM_ITERS iterations of means, scales and
     rotations, whose losses must be finite. Returns (launches, K7's and
-    K8's arguments of the first iteration)."""
+    K8's arguments of the first iteration, a function that runs 5 more
+    iterations for the device profile, the ms of one iteration)."""
     import torch
 
     from real2sim_eval_tpu_torch import ext
@@ -1381,11 +1673,6 @@ def run_refinement():
                        attrs=("means", "scales", "rotations"),
                        iters=REFINE_GEOM_ITERS, lr=5e-3, log_every=1,
                        device=DEVICE)
-    # the device's share: 5 more iterations under the profiler (their
-    # set-up, the parameters' and targets' upload, counts with them)
-    prof = device_profile(lambda: refine(start, ks, w2cs, images, iters=5,
-                                         lr=5e-3, log_every=5,
-                                         device=DEVICE))
     iter_ms = float(sum(np.mean(v) for v in stats.values()))
     _, starts, ends = k7_seen["args"][:3]
     out = {"phase": "refinement", "gaussians": int(true["means3D"].shape[0]),
@@ -1393,8 +1680,6 @@ def run_refinement():
            "setup_s": setup_s, "iters": REFINE_ITERS, "wall_ms": wall_ms,
            **{key: float(np.mean(v)) for key, v in stats.items()},
            "iter_ms": iter_ms, "each_ms": stats,
-           "profile_5_iters": prof,
-           "device_busy_share": prof["device_ms"] / 5 / iter_ms,
            "pairs_per_view": (ends - starts).sum(dim=1).tolist(),
            "max_memory_allocated_bytes": int(peak),
            "loss_first": hist[0], "loss_last": hist[-1], "losses": hist,
@@ -1407,7 +1692,14 @@ def run_refinement():
         if launches[name] < REFINE_ITERS:
             fail(f"refinement: {name} launched {launches[name]} times in "
                  f"{REFINE_ITERS} iterations")
-    return launches, k7_seen["args"], k8_seen["args"]
+
+    def five():
+        """5 more iterations for the device profile (their set-up, the
+        parameters' and targets' upload, count with them)."""
+        return refine(start, ks, w2cs, images, iters=5, lr=5e-3,
+                      log_every=5, device=DEVICE)
+
+    return launches, k7_seen["args"], k8_seen["args"], five, iter_ms
 
 
 def measure_refine_kernels(launches, k7_args, k8_args):
@@ -1502,17 +1794,33 @@ def main() -> int:
     check_k7_small()
     check_k8_small()
     check_k2_k6_small()
+    check_k4_small()
+    check_k5_small()
     check_k3_grasp()
     check_k3_loop()
     check_reference()
+    # every host-timed phase first, the device profiles last
     ev, actions, launches, flagship = run_flagship()
     ev_s, launches_s = run_flagship_stream(ev, actions)
+    ev_f, launches_f, flagship_f = run_flagship_fine(ev, actions)
     render_parity(ev, ev_s)
-    stage_breakdown(ev, ev_s, actions, flagship["total_ms"])
+    fine_render_parity(ev, ev_f)
+    stage_breakdown(ev, ev_s, actions)
+    fine_breakdown(ev_f, actions)
     kernels = measure_kernels(ev, ev_s, actions, launches, launches_s)
-    del ev, ev_s
-    launches_r, k7_args, k8_args = run_refinement()
+    kernels += measure_fine_kernels(ev_f, actions, launches_f)
+    del ev_s
+    launches_r, k7_args, k8_args, refine_five, iter_ms = run_refinement()
     kernels += measure_refine_kernels(launches_r, k7_args, k8_args)
+    device_profiles([
+        ("flagship", lambda: (ev.step(actions), ev.render()), 1,
+         flagship["total_ms"]),
+        ("flagship_fine", lambda: (ev_f.step(actions), ev_f.render()), 1,
+         flagship_f["total_ms"]),
+        ("refinement", refine_five, 5, iter_ms)])
+    # the control: the default path timed again, after the profiles
+    run_path("flagship_after_profiler", ev, actions, TIMED_STEPS_AFTER,
+             ("spring_mass_step", "tile_sparse", "tile_composite"), 0.0)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -8,8 +8,10 @@ the JAX package module for module (``utils/``, ``renderer/``, ``physics/``,
 Hand-written CUDA kernels (``csrc/``, built at first use for ``sm_90a``)
 replace the TPU Pallas kernels of the ported paths: the spring-mass
 control step (``physics/fused_step.py``), the tile compositors of the
-batched and incremental render, and the differentiable render's forward
-and backward (``renderer/tile_kernel.py``, ``renderer/diff.py``). Each
+batched and incremental render on 8x128 tiles (``renderer/tile_kernel.py``)
+and on 8x16 fine tiles (``renderer/fine_kernel.py``), and the
+differentiable render's forward and backward (``renderer/tile_kernel.py``,
+``renderer/diff.py``). Each
 has a plain PyTorch version beside it, which runs only for tensors on the
 CPU.
 

@@ -1,8 +1,9 @@
 // Python binding of the port's CUDA kernels: the only source that includes
 // PyTorch's headers. Callers (renderer/tile_kernel.py,
-// physics/fused_step.py) validate shapes and allocate outputs; this file
-// checks device, dtype, contiguity and every shape the kernels index through
-// once more, launches on the current stream and checks the launch.
+// renderer/fine_kernel.py, physics/fused_step.py) validate shapes and
+// allocate outputs; this file checks device, dtype, contiguity and every
+// shape the kernels index through once more, launches on the current stream
+// and checks the launch.
 
 #include <torch/extension.h>
 
@@ -30,18 +31,20 @@ void check_table(const torch::Tensor& t, const char* name) {
   TORCH_CHECK(t.dim() == 2 && t.size(0) == 10, name, " must be (10, P)");
 }
 
-// rgb (I, 3, 8 * n_tiles_y, 128 * n_tiles_x) and depth (I, Hp, Wp), f32
+// rgb (I, 3, 8 * n_tiles_y, tile_w * n_tiles_x) and depth (I, Hp, Wp),
+// f32; tile_w is 128 (wide tiles) or 16 (fine tiles)
 void check_frames(const torch::Tensor& rgb, const torch::Tensor& depth,
-                  int64_t n_inst, int64_t n_tiles_x, int64_t n_tiles_y) {
+                  int64_t n_inst, int64_t n_tiles_x, int64_t n_tiles_y,
+                  int64_t tile_w = 128) {
   check(rgb, "rgb", at::kFloat);
   check(depth, "depth", at::kFloat);
-  const int64_t h_pad = 8 * n_tiles_y, w_pad = 128 * n_tiles_x;
+  const int64_t h_pad = 8 * n_tiles_y, w_pad = tile_w * n_tiles_x;
   TORCH_CHECK(rgb.dim() == 4 && rgb.size(0) == n_inst && rgb.size(1) == 3 &&
                   rgb.size(2) == h_pad && rgb.size(3) == w_pad,
-              "rgb must be (I, 3, 8 * n_tiles_y, 128 * n_tiles_x)");
+              "rgb must be (I, 3, 8 * n_tiles_y, tile_w * n_tiles_x)");
   TORCH_CHECK(depth.dim() == 3 && depth.size(0) == n_inst &&
                   depth.size(1) == h_pad && depth.size(2) == w_pad,
-              "depth must be (I, 8 * n_tiles_y, 128 * n_tiles_x)");
+              "depth must be (I, 8 * n_tiles_y, tile_w * n_tiles_x)");
 }
 
 // the (n_dirty,) i32 tables of a dirty-tile list, all of one length
@@ -170,6 +173,42 @@ void tile_sparse_merge(torch::Tensor data_s, torch::Tensor data_d,
       (int)rgb.size(0), (int)n_tiles_x, (int)n_tiles_y, (float)bg0,
       (float)bg1, (float)bg2, rgb.data_ptr<float>(), depth.data_ptr<float>(),
       c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void fine_composite(torch::Tensor pairs, torch::Tensor starts,
+                    torch::Tensor ends, int64_t n_fine_x, int64_t n_tiles_y,
+                    double bg0, double bg1, double bg2, torch::Tensor rgb,
+                    torch::Tensor depth) {
+  const int64_t n_inst =
+      check_ranges(pairs, starts, ends, n_fine_x, n_tiles_y);
+  check_frames(rgb, depth, n_inst, n_fine_x, n_tiles_y, 16);
+  const c10::cuda::CUDAGuard guard(pairs.device());
+  C10_CUDA_CHECK(fine_composite_launch(
+      pairs.data_ptr<float>(), pairs.size(1), starts.data_ptr<int>(),
+      ends.data_ptr<int>(), (int)n_inst, (int)n_fine_x, (int)n_tiles_y,
+      (float)bg0, (float)bg1, (float)bg2, rgb.data_ptr<float>(),
+      depth.data_ptr<float>(), c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void fine_sparse(torch::Tensor pairs, torch::Tensor inst_ids,
+                 torch::Tensor tile_ids, torch::Tensor starts,
+                 torch::Tensor ends, int64_t n_fine_x, int64_t n_tiles_y,
+                 double bg0, double bg1, double bg2, torch::Tensor rgb,
+                 torch::Tensor depth) {
+  check_table(pairs, "pairs");
+  const int64_t n_dirty = check_dirty_list(
+      {{&inst_ids, "inst_ids"}, {&tile_ids, "tile_ids"},
+       {&starts, "starts"}, {&ends, "ends"}});
+  check_frames(rgb, depth, rgb.size(0), n_fine_x, n_tiles_y, 16);
+  const c10::cuda::CUDAGuard guard(pairs.device());
+  C10_CUDA_CHECK(fine_sparse_launch(
+      pairs.data_ptr<float>(), pairs.size(1), inst_ids.data_ptr<int>(),
+      tile_ids.data_ptr<int>(), starts.data_ptr<int>(), ends.data_ptr<int>(),
+      (int)n_dirty, (int)rgb.size(0), (int)n_fine_x, (int)n_tiles_y,
+      (float)bg0, (float)bg1, (float)bg2, rgb.data_ptr<float>(),
+      depth.data_ptr<float>(), c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -326,6 +365,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("tile_sparse_merge", &tile_sparse_merge,
         "Dirty-tile compositor merging static and dynamic segments, in "
         "place (CUDA)");
+  m.def("fine_composite", &fine_composite,
+        "Fine-tile compositor over (instance, 8x16 fine tile) (CUDA)");
+  m.def("fine_sparse", &fine_sparse,
+        "Dirty fine-tile compositor over a merged pair table, in place "
+        "(CUDA)");
   m.def("spring_mass_step", &spring_mass_step,
         "All substeps of one spring-mass control step, one CTA per env "
         "(CUDA)");

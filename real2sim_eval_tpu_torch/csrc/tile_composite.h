@@ -1,5 +1,6 @@
 // C interface of the tile compositors: K1 and K7 (tile_composite.cu), K8
-// (tile_backward.cu), K2 (tile_sparse.cu) and K6 (tile_sparse_merge.cu).
+// (tile_backward.cu), K2 (tile_sparse.cu), K6 (tile_sparse_merge.cu), and
+// the fine-tile compositors K4 (fine_composite.cu) and K5 (fine_sparse.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,6 +61,27 @@ cudaError_t tile_sparse_merge_launch(
     const int* s_ends, const int* d_starts, const int* d_ends, int n_dirty,
     int n_inst, int n_tiles_x, int n_tiles_y, float bg0, float bg1,
     float bg2, float* rgb, float* depth, cudaStream_t stream);
+
+// K4: K1 over 8x16 fine tiles. starts/ends: (n_inst * n_fine_x *
+// n_tiles_y) i32 pair ranges of fine tile ty * n_fine_x + tx; rgb: (n_inst,
+// 3, 8 * n_tiles_y, 16 * n_fine_x) f32 and depth: (n_inst, 8 * n_tiles_y,
+// 16 * n_fine_x) f32, written in full.
+cudaError_t fine_composite_launch(const float* pairs, long long n_pairs,
+                                  const int* starts, const int* ends,
+                                  int n_inst, int n_fine_x, int n_tiles_y,
+                                  float bg0, float bg1, float bg2, float* rgb,
+                                  float* depth, cudaStream_t stream);
+
+// K5: K2 over 8x16 fine tiles: for each of the n_dirty entries, fine tile
+// tile_ids[k] of instance inst_ids[k] is re-composited from
+// pairs[starts[k], ends[k]) into rgb and depth (shaped as for K4); every
+// other pixel is left as it is.
+cudaError_t fine_sparse_launch(const float* pairs, long long n_pairs,
+                               const int* inst_ids, const int* tile_ids,
+                               const int* starts, const int* ends,
+                               int n_dirty, int n_inst, int n_fine_x,
+                               int n_tiles_y, float bg0, float bg1, float bg2,
+                               float* rgb, float* depth, cudaStream_t stream);
 
 #ifdef __cplusplus
 }

@@ -14,14 +14,17 @@ and one render, on one of the JAX package's two branches:
     anywhere; the JAX package's flagship branch): LBS of the object splats
     plus the robot-link rows, one IK (``compose_dyn``); the fixed cameras
     re-composite only their dirty tiles on top of static frames built once
-    (renderer/incremental.py: sort merge + K2, or K6); the wrist camera
-    runs the full pipeline (K1) on [dynamic; static], the static part (and
-    the dynamic part, where it pays) first culled to the blocks its
-    frustum can see (renderer/precull.py), under the JAX package's rules;
+    (renderer/incremental.py: sort merge + K2, or K6; with
+    ``kernel="fine"`` renderer/incremental_fine.py: dirty 8x16 fine tiles,
+    sort merge + K5); the wrist camera runs the full pipeline (K1, or K4
+    for the fine family, picked by ``wrist_kernel``) on [dynamic; static],
+    the static part (and the dynamic part, where it pays) first culled to
+    the blocks its frustum can see (renderer/precull.py), under the JAX
+    package's rules;
   - full pipeline (``incremental="off"``, and "auto" on the CPU): LBS plus
     robot articulation of the whole scene (``compose``), per-camera
-    preprocess and exact binning, then ONE launch of K1 over every (env,
-    camera, tile).
+    preprocess and exact binning, then ONE launch of K1 (K4 with
+    ``kernel="fine"``) over every (env, camera, tile).
 
 Scene assets come in as ``BatchedAssets`` (see convert.py and testing.py);
 the host-side asset build of the JAX package (envs, loaders) is not part
@@ -44,6 +47,8 @@ from ..renderer import lbs as lbs_mod
 from ..renderer import precull as pc
 from ..renderer.camera import Camera, setup_camera, wrist_w2c
 from ..renderer.incremental import build_static_raster, render_incremental
+from ..renderer.incremental_fine import (build_static_raster_fine,
+                                         render_incremental_fine)
 from ..renderer.raster import RasterConfig, rasterize_batch
 from ..renderer.scene import RobotArticulation
 from ..utils import transforms as tf
@@ -170,8 +175,17 @@ class BatchedEvaluator:
         if not self.incremental:
             return
         scene = self.static_scene()
-        self._cam_static = [(cam, build_static_raster(cam, w2c, scene,
-                                                      self.sh_deg), w2c)
+        fine = rc.kernel == "fine"
+        build = build_static_raster_fine if fine else build_static_raster
+        self._render_fixed = (render_incremental_fine if fine
+                              else render_incremental)
+        # the wrist family may take the other compositor (the JAX rule,
+        # batched.py:513-519); only on this branch
+        self._wrist_config = rc
+        if rc.wrist_kernel not in ("inherit", rc.kernel):
+            self._wrist_config = dataclasses.replace(rc,
+                                                     kernel=rc.wrist_kernel)
+        self._cam_static = [(cam, build(cam, w2c, scene, self.sh_deg), w2c)
                             for cam, w2c in self._fixed_cams]
         if self.sh_deg == 0:
             scene = dict(scene, shs=scene["shs"][:, :1])
@@ -396,13 +410,16 @@ class BatchedEvaluator:
         wrist images, wrist depths) and updates the cached IK qpos. Render
         telemetry lands in ``self.render_telemetry`` as a (fixed, wrist)
         pair: fixed (n_fixed, B, 4) i32 [n_dirty, dropped_tiles,
-        dropped_pairs, binning_dropped], wrist (n_wrist, B) i32. On the
-        incremental branch ``self.render_stats`` holds the merged pair count
-        and the wrist cull's kept blocks per (wrist camera, env)."""
+        dropped_pairs, binning_dropped] (n_dirty counts 8x128 tiles on
+        either kernel family: the dirty supertiles on the fine one), wrist
+        (n_wrist, B) i32. On the incremental branch ``self.render_stats``
+        holds the merged pair count, on the fine family the dirty fine
+        tiles per (fixed camera, env), and the wrist cull's kept blocks per
+        (wrist camera, env)."""
         st = self.state
         if self.incremental:
             dyn, qpos_new = self.compose_dyn(st, dc_only=self.sh_deg == 0)
-            rgb, depth, tele = render_incremental(
+            rgb, depth, tele = self._render_fixed(
                 self._cam_static, dyn, self.sh_deg, config=self.raster_config,
                 stats=self.render_stats)
             wims, wdepths, wdrops = self.render_wrist(st, dyn,
@@ -437,11 +454,11 @@ class BatchedEvaluator:
     def render_wrist(self, state: BatchedState, dyn: dict,
                      static_cull: bool, dyn_cull: bool):
         """The wrist cameras of the incremental branch: the full pipeline
-        on [dynamic; static], each part first culled to the blocks the
-        camera can see where asked (one render per camera, since culled
-        scenes differ), else one render of all wrist cameras. ``dyn`` is
-        ``compose_dyn``'s scene. Returns (images (B, n_wrist, 3, H, W),
-        depths, binning drops (n_wrist, B) i32)."""
+        of the wrist family's kernel on [dynamic; static], each part first
+        culled to the blocks the camera can see where asked (one render per
+        camera, since culled scenes differ), else one render of all wrist
+        cameras. ``dyn`` is ``compose_dyn``'s scene. Returns (images (B,
+        n_wrist, 3, H, W), depths, binning drops (n_wrist, B) i32)."""
         B = state.rel_pose.shape[0]
         eef_rot = tf.quat_to_rot(state.grippers[:, 6:10])
         cams = [(cam, wrist_w2c(eef2c, state.grippers[:, :3], eef_rot))
@@ -457,7 +474,7 @@ class BatchedEvaluator:
             scenes = {k: torch.cat([dyn[k], self._static[k][None].expand(
                 (B,) + self._static[k].shape)], dim=1) for k in SPLAT_KEYS}
             rgb, depth, drops = rasterize_batch(
-                cams, scenes, self.sh_deg, config=self.raster_config,
+                cams, scenes, self.sh_deg, config=self._wrist_config,
                 return_drops=True, device=self.device)
             return rgb.transpose(0, 1), depth.transpose(0, 1), drops
         st_w, centers, radii = self._cull_static
@@ -474,7 +491,7 @@ class BatchedEvaluator:
             scene = {k: torch.cat([dyn_c[k], culled[k]], dim=1)
                      for k in SPLAT_KEYS}
             outs.append(rasterize_batch([(cam, w2c_b)], scene, self.sh_deg,
-                                        config=self.raster_config,
+                                        config=self._wrist_config,
                                         return_drops=True,
                                         device=self.device))
         self.render_stats["wrist_static_blocks"] = torch.stack(kept_s)

@@ -1,6 +1,7 @@
 """Tile binning with exactly sized pair buffers.
 
-Counterpart of the JAX package's renderer/binning.py, batched over
+Counterpart of the JAX package's renderer/binning.py (``bin_gaussians``)
+and renderer/binning_fine.py (``bin_gaussians_fine``), batched over
 instances. The TPU version fits every pair into static budgets (a
 per-gaussian rect clamp, a dense slot block plus grant tiers, a cropped
 pair buffer) and reports what those budgets drop. Here the buffers are
@@ -12,6 +13,15 @@ depth sort, so equal depths tie-break by gaussian index, as in the TPU
 version). Nothing is ever dropped: ``n_large_dropped`` keeps the TPU
 telemetry's shape and is always 0.
 
+The fine binning cuts the frame into 8x16 fine tiles, 8 to a wide 8x128
+tile, and has no conic cull: the JAX fine binner counts every cell of a
+gaussian's fine rect (its stream bounds are analytic), so its pair table
+holds the slots the cull would drop. The pixels are the same either way
+(such a pair is rejected per pixel by the alpha floor); the pair table is
+not, and the port's is held to JAX's bitwise. With budgets that cover
+every rect, the JAX fine binner's centred rect clamp is the identity, so
+the two agree slot for slot.
+
 Pair attributes are structure-of-arrays, (10, P) f32 in the order
 [x, y, conic a, conic b, conic c, opacity, r, g, b, depth]; the TPU's
 8-pairs-per-128-lane packing is a DMA device the card does not need.
@@ -22,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from .preprocess import tile_rect
+from .tile_kernel import FINE_W, GROUPS, TILE_H
 
 N_ATTR = 10
 
@@ -68,11 +79,14 @@ def _exact_cull_keep(attrs, tx, ty, q_thr, tile_w, tile_h):
 
 
 def bin_gaussians(pre: dict, n_tiles_x: int, n_tiles_y: int, tile_w: int,
-                  tile_h: int) -> dict:
+                  tile_h: int, cull: bool = True) -> dict:
     """Depth-sorted per-tile pair tables for I instances.
 
     Args:
       pre: preprocess_gaussians output with leading (I, N) dims.
+      cull: drop the (gaussian, tile) slots the exact conic cull proves
+        blank (the wide binning); False keeps every cell of each valid
+        gaussian's tile rect (the fine binning).
     Returns dict with:
       pair_attrs: (10, P) f32 sorted pair attributes, instance-major;
       pair_tile: (P,) i32 tile id per sorted pair;
@@ -110,12 +124,14 @@ def bin_gaussians(pre: dict, n_tiles_x: int, n_tiles_y: int, tile_w: int,
     ty = y0.reshape(-1).long()[gid] + d // rw
 
     attrs = pair_attr_table(pre).reshape(N_ATTR, -1)          # (10, I*N)
-    opac = attrs[5]
-    q_thr = (2.0 * torch.log(255.0 * torch.clamp(opac, min=1e-12))
-             + 1e-3)
-    keep = _exact_cull_keep(attrs[:, gid], tx, ty, q_thr[gid],
-                            tile_w, tile_h)
-    gid, tile = gid[keep], (ty * n_tiles_x + tx)[keep]
+    tile = ty * n_tiles_x + tx
+    if cull:
+        opac = attrs[5]
+        q_thr = (2.0 * torch.log(255.0 * torch.clamp(opac, min=1e-12))
+                 + 1e-3)
+        keep = _exact_cull_keep(attrs[:, gid], tx, ty, q_thr[gid],
+                                tile_w, tile_h)
+        gid, tile = gid[keep], tile[keep]
 
     inst = gid // n
     gtile = inst * n_tiles + tile                  # global (instance, tile)
@@ -136,3 +152,13 @@ def bin_gaussians(pre: dict, n_tiles_x: int, n_tiles_y: int, tile_w: int,
         "n_large_dropped": torch.zeros(n_inst, dtype=torch.int32,
                                        device=dev),
     }
+
+
+def bin_gaussians_fine(pre: dict, n_sup_x: int, n_sup_y: int) -> dict:
+    """``bin_gaussians`` on the 8x16 fine tiles of a frame n_sup_x wide
+    8x128 tiles by n_sup_y high, without the conic cull. Fine tile ids
+    follow the JAX fine binner: f = ty * (8 n_sup_x) + tx, so f // 8 is the
+    8x128 supertile (supertile-major). Same keys as ``bin_gaussians``; the
+    tile ranges are the JAX binner's ``fine_starts`` / ``fine_ends``."""
+    return bin_gaussians(pre, n_sup_x * GROUPS, n_sup_y, FINE_W, TILE_H,
+                         cull=False)

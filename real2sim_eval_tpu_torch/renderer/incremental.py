@@ -25,7 +25,8 @@ on the particle state) and the robot-link splats do. So, per fixed camera:
 
 The merged order is the full pipeline's stable depth sort of the scene
 concatenated [dynamic; static], so the frames equal the full pipeline's on
-that concatenation bitwise.
+that concatenation bitwise. renderer/incremental_fine.py runs the same
+step on 8x16 fine tiles (K4, K5) through the helpers here.
 
 Every buffer is sized from the data: every dirty tile is re-composited
 (the JAX package's ``t_budget``), the static fill is exactly the dirty
@@ -53,7 +54,8 @@ from .tile_kernel import (ALPHA_MAX, ALPHA_MIN, T_EPS, TILE_H, TILE_W,
 
 @dataclasses.dataclass(frozen=True)
 class StaticRaster:
-    """Frozen static-scene raster state for ONE fixed camera."""
+    """Frozen static-scene raster state for ONE fixed camera (8x128
+    tiles)."""
 
     pairs: torch.Tensor        # (10, P_s) per-tile depth-sorted pair table
     starts: torch.Tensor       # (n_tiles,) i32 pair range start per tile
@@ -66,9 +68,16 @@ class StaticRaster:
     height: int
     width: int
 
+    def bin(self, pre: dict) -> dict:
+        """Exact binning of preprocessed gaussians onto this raster's
+        tiles."""
+        return bin_gaussians(pre, self.n_tiles_x, self.n_tiles_y, TILE_W,
+                             TILE_H)
+
 
 def static_cutoff(pairs, starts, ends, n_tiles_x: int, n_tiles_y: int,
-                  max_seg: int) -> torch.Tensor:
+                  max_seg: int, tile_w: int = TILE_W,
+                  tile_h: int = TILE_H) -> torch.Tensor:
     """Per-tile count of leading static pairs that can ever contribute.
 
     Front-to-back transmittance saturates: once every pixel of a tile is
@@ -78,16 +87,17 @@ def static_cutoff(pairs, starts, ends, n_tiles_x: int, n_tiles_y: int,
     every merged stream too: cutting the merge ranges there is pixel-exact.
     The JAX package's ``_static_cutoff`` (an XLA scan), here plain PyTorch
     run once per build: pair p of a tile counts iff the tile still had a
-    live pixel before it. Returns (n_tiles,) i32."""
+    live pixel before it. Tiles are tile_h x tile_w pixels (8x128, or the
+    8x16 fine tiles). Returns (n_tiles,) i32."""
     dev = pairs.device
     n_tiles = n_tiles_x * n_tiles_y
     p_s = pairs.shape[1]
     t = torch.arange(n_tiles, device=dev)
-    px = (((t % n_tiles_x) * TILE_W)[:, None, None]
-          + torch.arange(TILE_W, device=dev)[None, None, :]).to(torch.float32)
-    py = (((t // n_tiles_x) * TILE_H)[:, None, None]
-          + torch.arange(TILE_H, device=dev)[None, :, None]).to(torch.float32)
-    shape = (n_tiles, TILE_H, TILE_W)
+    px = (((t % n_tiles_x) * tile_w)[:, None, None]
+          + torch.arange(tile_w, device=dev)[None, None, :]).to(torch.float32)
+    py = (((t // n_tiles_x) * tile_h)[:, None, None]
+          + torch.arange(tile_h, device=dev)[None, :, None]).to(torch.float32)
+    shape = (n_tiles, tile_h, tile_w)
     T = torch.ones(shape, dtype=torch.float32, device=dev)
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -116,39 +126,54 @@ def static_cutoff(pairs, starts, ends, n_tiles_x: int, n_tiles_y: int,
     return k_sat
 
 
+def preprocess_static(cam: Camera, w2c, scene: dict, sh_degree: int):
+    """``preprocess_gaussians`` of an (N, ...) static scene dict as one
+    instance, on the scene's device."""
+    dev = scene["means3D"].device
+    shs = scene["shs"] if sh_degree > 0 else scene["shs"][:, :1]
+    w2c = torch.as_tensor(w2c, dtype=torch.float32, device=dev)
+    return preprocess_gaussians(cam, w2c[None], scene["means3D"][None],
+                                scene["scales"][None],
+                                scene["rotations"][None],
+                                scene["opacities"][None], shs[None],
+                                sh_degree)
+
+
+def freeze_static(cls, cam: Camera, bins: dict, rgb, depth, n_tiles_x: int,
+                  n_tiles_y: int, tile_w: int):
+    """A ``cls`` static raster from one instance's binning and composited
+    frame, each tile's range cut at saturation (``static_cutoff``)."""
+    starts, ends = bins["tile_starts"][0], bins["tile_ends"][0]
+    max_seg = int((ends - starts).max()) if starts.numel() else 0
+    k_sat = static_cutoff(bins["pair_attrs"], starts, ends, n_tiles_x,
+                          n_tiles_y, max_seg, tile_w, TILE_H)
+    return cls(
+        pairs=bins["pair_attrs"], starts=starts, ends=starts + k_sat,
+        rgb_cache=rgb[0], depth_cache=depth[0], n_tiles_x=n_tiles_x,
+        n_tiles_y=n_tiles_y, max_seg=int(k_sat.max()) if k_sat.numel() else 0,
+        height=cam.height, width=cam.width)
+
+
 def build_static_raster(cam: Camera, w2c, scene: dict, sh_degree: int,
                         bg=(0.0, 0.0, 0.0)) -> StaticRaster:
     """Preprocess + bin + composite (one K1 launch) the static gaussians
     of an (N, ...) scene dict once, on the scene's device."""
-    dev = scene["means3D"].device
     ntx = -(-cam.width // TILE_W)
     nty = -(-cam.height // TILE_H)
-    shs = scene["shs"] if sh_degree > 0 else scene["shs"][:, :1]
-    w2c = torch.as_tensor(w2c, dtype=torch.float32, device=dev)
-    pre = preprocess_gaussians(cam, w2c[None], scene["means3D"][None],
-                               scene["scales"][None],
-                               scene["rotations"][None],
-                               scene["opacities"][None], shs[None], sh_degree)
+    pre = preprocess_static(cam, w2c, scene, sh_degree)
     bins = bin_gaussians(pre, ntx, nty, TILE_W, TILE_H)
     rgb, depth = rasterize_tiles_batch(bins["pair_attrs"], bins["tile_starts"],
                                        bins["tile_ends"], ntx, nty,
                                        bg_tuple(bg))
-    starts, ends = bins["tile_starts"][0], bins["tile_ends"][0]
-    max_seg = int((ends - starts).max()) if starts.numel() else 0
-    k_sat = static_cutoff(bins["pair_attrs"], starts, ends, ntx, nty,
-                          max_seg)
-    return StaticRaster(
-        pairs=bins["pair_attrs"], starts=starts, ends=starts + k_sat,
-        rgb_cache=rgb[0], depth_cache=depth[0], n_tiles_x=ntx,
-        n_tiles_y=nty, max_seg=int(k_sat.max()) if k_sat.numel() else 0,
-        height=cam.height, width=cam.width)
+    return freeze_static(StaticRaster, cam, bins, rgb, depth, ntx, nty,
+                         TILE_W)
 
 
 def bin_dynamic(cam_static_w2c: list, dyn_scenes: dict, sh_degree: int):
     """Preprocess + exact binning of the dynamic gaussians of B envs for
-    every fixed camera. Returns (pairs (10, P_d), tile_starts, tile_ends
-    (I, n_tiles) i32 into P_d, binning drops (I,) i32), instances
-    camera-major: i = camera * B + env."""
+    every fixed camera, onto each static raster's tiles. Returns (pairs
+    (10, P_d), tile_starts, tile_ends (I, n_tiles) i32 into P_d, binning
+    drops (I,) i32), instances camera-major: i = camera * B + env."""
     B = dyn_scenes["means3D"].shape[0]
     dev = dyn_scenes["means3D"].device
     shs = dyn_scenes["shs"] if sh_degree > 0 else dyn_scenes["shs"][:, :, :1]
@@ -161,8 +186,7 @@ def bin_dynamic(cam_static_w2c: list, dyn_scenes: dict, sh_degree: int):
                                    dyn_scenes["scales"],
                                    dyn_scenes["rotations"],
                                    dyn_scenes["opacities"], shs, sh_degree)
-        bins = bin_gaussians(pre, static.n_tiles_x, static.n_tiles_y,
-                             TILE_W, TILE_H)
+        bins = static.bin(pre)
         parts.append(bins["pair_attrs"])
         starts.append(bins["tile_starts"] + offset)
         ends.append(bins["tile_ends"] + offset)
@@ -177,6 +201,71 @@ def dirty_tiles(tile_starts, tile_ends):
     (instance-major): two (n_dirty,) i32."""
     inst, tile = torch.nonzero(tile_ends > tile_starts, as_tuple=True)
     return inst.to(torch.int32), tile.to(torch.int32)
+
+
+def dirty_segments(cam_static_w2c: list, dyn_scenes: dict,
+                   sh_degree: int) -> dict:
+    """What the dirty tiles of one incremental step blend over: the
+    dynamic binning (``bin_dynamic``), the exact dirty list (``dirty_tiles``)
+    and, per dirty entry, its dynamic segment and its camera's truncated
+    static segment, plus the cached frames broadcast over the envs.
+
+    Returns dict with data_s / data_d ((10, P) f32 tables of all cameras),
+    inst / tile ((n_dirty,) i32), s_starts / s_ends / d_starts / d_ends
+    ((n_dirty,) i32 ranges into data_s / data_d), rgb_cache (n_cams, B, 3,
+    Hp, Wp) and depth_cache (n_cams, B, Hp, Wp) views, drops (I,) i32 and
+    the frame size h, w, n_cams, B."""
+    if not cam_static_w2c:
+        raise ValueError("need at least one fixed camera")
+    cam0, _, _ = cam_static_w2c[0]
+    h, w = cam0.height, cam0.width
+    for cam, st, _ in cam_static_w2c:
+        if {(cam.height, cam.width), (st.height, st.width)} != {(h, w)}:
+            raise ValueError("incremental render needs one resolution")
+    n_cams = len(cam_static_w2c)
+    B = dyn_scenes["means3D"].shape[0]
+
+    data_d, d_tile_starts, d_tile_ends, drops = bin_dynamic(
+        cam_static_w2c, dyn_scenes, sh_degree)
+    inst, tile = dirty_tiles(d_tile_starts, d_tile_ends)
+    il, tl = inst.long(), tile.long()
+
+    # frozen static tables of all cameras, one table with per-camera offsets
+    statics = [st for _, st, _ in cam_static_w2c]
+    offsets = [0]
+    for st in statics[:-1]:
+        offsets.append(offsets[-1] + st.pairs.shape[1])
+    s_tile_starts = torch.stack([st.starts + o
+                                 for st, o in zip(statics, offsets)])
+    s_tile_ends = torch.stack([st.ends + o for st, o in zip(statics, offsets)])
+    cam_of = il // B
+    rgb_cache = torch.stack([st.rgb_cache for st in statics])[:, None]
+    depth_cache = torch.stack([st.depth_cache for st in statics])[:, None]
+    return {
+        "data_s": torch.cat([st.pairs for st in statics], dim=1),
+        "data_d": data_d, "inst": inst, "tile": tile,
+        "s_starts": s_tile_starts[cam_of, tl],
+        "s_ends": s_tile_ends[cam_of, tl],
+        "d_starts": d_tile_starts[il, tl], "d_ends": d_tile_ends[il, tl],
+        "rgb_cache": rgb_cache.expand((n_cams, B) + rgb_cache.shape[2:]),
+        "depth_cache": depth_cache.expand((n_cams, B)
+                                          + depth_cache.shape[2:]),
+        "drops": drops, "h": h, "w": w, "n_cams": n_cams, "B": B}
+
+
+def finish_frames(rgb, depth, seg: dict, n_dirty):
+    """Crop the padded (I, 3, Hp, Wp) / (I, Hp, Wp) frames of a
+    ``dirty_segments`` step to (n_cams, B, ...), clip rgb to [0, 1], and
+    build the telemetry (n_cams, B, 4) i32 [n_dirty, 0, 0, binning drops]
+    from the (I,) dirty counts."""
+    h, w, n_cams, B = seg["h"], seg["w"], seg["n_cams"], seg["B"]
+    rgb = torch.clamp(rgb[:, :, :h, :w], 0.0, 1.0).reshape(n_cams, B, 3, h, w)
+    depth = depth[:, :h, :w].reshape(n_cams, B, h, w)
+    tele = torch.zeros((n_cams * B, 4), dtype=torch.int32,
+                       device=rgb.device)
+    tele[:, 0] = n_dirty
+    tele[:, 3] = seg["drops"]
+    return rgb, depth, tele.reshape(n_cams, B, 4)
 
 
 def render_incremental(cam_static_w2c: list, dyn_scenes: dict,
@@ -197,40 +286,15 @@ def render_incremental(cam_static_w2c: list, dyn_scenes: dict,
        telemetry (n_cams, B, 4) i32 [n_dirty, dropped_tiles,
        static_fill_dropped, binning_dropped])
     """
-    if not cam_static_w2c:
-        raise ValueError("need at least one fixed camera")
-    cam0, st0, _ = cam_static_w2c[0]
-    h, w = cam0.height, cam0.width
-    for cam, st, _ in cam_static_w2c:
-        if {(cam.height, cam.width), (st.height, st.width)} != {(h, w)}:
-            raise ValueError("incremental render needs one resolution")
+    seg = dirty_segments(cam_static_w2c, dyn_scenes, sh_degree)
+    st0 = cam_static_w2c[0][1]
     ntx, nty = st0.n_tiles_x, st0.n_tiles_y
-    n_cams = len(cam_static_w2c)
-    B = dyn_scenes["means3D"].shape[0]
     bg = bg_tuple(bg)
-
-    data_d, d_tile_starts, d_tile_ends, drops = bin_dynamic(
-        cam_static_w2c, dyn_scenes, sh_degree)
-    inst, tile = dirty_tiles(d_tile_starts, d_tile_ends)
-    il, tl = inst.long(), tile.long()
-    d_starts, d_ends = d_tile_starts[il, tl], d_tile_ends[il, tl]
-
-    # frozen static tables of all cameras, one table with per-camera offsets
-    statics = [st for _, st, _ in cam_static_w2c]
-    data_s = torch.cat([st.pairs for st in statics], dim=1)
-    offsets = [0]
-    for st in statics[:-1]:
-        offsets.append(offsets[-1] + st.pairs.shape[1])
-    s_tile_starts = torch.stack([st.starts + o
-                                 for st, o in zip(statics, offsets)])
-    s_tile_ends = torch.stack([st.ends + o for st, o in zip(statics, offsets)])
-    cam_of = il // B
-    s_starts, s_ends = s_tile_starts[cam_of, tl], s_tile_ends[cam_of, tl]
-
-    rgb_cache = torch.stack([st.rgb_cache for st in statics])[:, None] \
-        .expand(n_cams, B, 3, nty * TILE_H, ntx * TILE_W)
-    depth_cache = torch.stack([st.depth_cache for st in statics])[:, None] \
-        .expand(n_cams, B, nty * TILE_H, ntx * TILE_W)
+    data_s, data_d, inst, tile = (seg[k] for k in ("data_s", "data_d",
+                                                   "inst", "tile"))
+    s_starts, s_ends, d_starts, d_ends = (
+        seg[k] for k in ("s_starts", "s_ends", "d_starts", "d_ends"))
+    rgb_cache, depth_cache = seg["rgb_cache"], seg["depth_cache"]
     if config.merge_kernel == "stream":
         rgb, depth = rasterize_tiles_sparse_merge(
             data_s, data_d, inst, tile, s_starts, s_ends, d_starts, d_ends,
@@ -246,11 +310,5 @@ def render_incremental(cam_static_w2c: list, dyn_scenes: dict,
                                             ntx, nty, bg)
         if stats is not None:
             stats["merged_pairs"] = int(merged.shape[1])
-
-    rgb = torch.clamp(rgb[:, :, :h, :w], 0.0, 1.0).reshape(n_cams, B, 3, h, w)
-    depth = depth[:, :h, :w].reshape(n_cams, B, h, w)
-    tele = torch.zeros((n_cams * B, 4), dtype=torch.int32,
-                       device=rgb.device)
-    tele[:, 0] = torch.bincount(il, minlength=n_cams * B).to(torch.int32)
-    tele[:, 3] = drops
-    return rgb, depth, tele.reshape(n_cams, B, 4)
+    n_dirty = torch.bincount(inst.long(), minlength=seg["n_cams"] * seg["B"])
+    return finish_frames(rgb, depth, seg, n_dirty.to(torch.int32))

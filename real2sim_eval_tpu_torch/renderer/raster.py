@@ -6,11 +6,16 @@ identical semantics:
   - ``reference``: the dense O(N*H*W) compositor (``_composite_reference``),
     for tests and tiny scenes;
   - ``tiles``: preprocess + exact binning + the tile compositor K1
-    (``tile_kernel.rasterize_tiles_batch``) over (instance, 8x128 tile):
-    the CUDA kernel on the card, its plain PyTorch version on the CPU.
+    (``tile_kernel.rasterize_tiles_batch``) over (instance, 8x128 tile),
+    or, with ``kernel="fine"``, the fine binning + the fine compositor K4
+    (``fine_kernel.rasterize_fine_batch``) over (instance, 8x16 fine
+    tile): the CUDA kernel on the card, its plain PyTorch version on the
+    CPU.
 
-The 8x128 tile gating is semantics, not a performance choice: a gaussian
-only reaches the tiles of its 3-sigma rect, in both backends.
+The tile gating is semantics, not a performance choice: a gaussian only
+reaches the tiles of its 3-sigma rect, in both backends, so the fine
+kernel's frames differ from the wide one's (PARITY.md §16) and the
+reference gates at the configured kernel's tile.
 """
 
 from __future__ import annotations
@@ -19,11 +24,12 @@ import dataclasses
 
 import torch
 
-from .binning import bin_gaussians
+from .binning import bin_gaussians, bin_gaussians_fine
 from .camera import Camera
+from .fine_kernel import rasterize_fine_batch
 from .preprocess import preprocess_gaussians, tile_rect
-from .tile_kernel import (ALPHA_MAX, ALPHA_MIN, MEDIAN_DEPTH_DEFAULT, T_EPS,
-                          TILE_H, TILE_W, rasterize_tiles_batch)
+from .tile_kernel import (ALPHA_MAX, ALPHA_MIN, FINE_W, MEDIAN_DEPTH_DEFAULT,
+                          T_EPS, TILE_H, TILE_W, rasterize_tiles_batch)
 from ..utils.device import resolve_device
 
 
@@ -40,22 +46,35 @@ class RasterConfig:
     ``wrist_precull``: block frustum cull of the scene for the wrist
     camera (renderer/precull.py); "auto" culls where the JAX package's
     evaluator would.
+    ``kernel``: the compositor family, "wide" (8x128 tiles: K1, and K2/K6
+    for the dirty tiles) or "fine" (8x16 tiles: K4, and K5 for the dirty
+    fine tiles, renderer/incremental_fine.py, which always merges by
+    sort).
+    ``wrist_kernel``: the wrist camera's family on the incremental branch,
+    "inherit" taking ``kernel``; the full-pipeline branch renders every
+    camera with ``kernel``.
 
     The JAX package's budgets (``dirty_budget``, ``mix_pairs``,
-    ``merge_mem_budget``, ``auto_budgets``, the pair-buffer factors) and
-    ``pack_payloads`` have no counterpart: the port sizes every buffer from
-    the data, so nothing is ever dropped, and never packs payloads."""
+    ``merge_mem_budget``, ``auto_budgets``, the pair-buffer factors, the
+    fine budgets ``fine_small_tiles``/``fine_max_tiles``/
+    ``fine_pairs_factor``/``fine_pairs_override``) and ``pack_payloads``
+    have no counterpart: the port sizes every buffer from the data, so
+    nothing is ever dropped, and never packs payloads."""
 
     backend: str = "tiles"             # tiles | reference
     incremental: str = "auto"          # auto | on | off
     merge_kernel: str = "sort"         # sort | stream
     wrist_precull: str = "auto"        # auto | on | off
+    kernel: str = "wide"               # wide | fine
+    wrist_kernel: str = "inherit"      # inherit | wide | fine
 
     def __post_init__(self):
         for name, allowed in (("backend", ("tiles", "reference")),
                               ("incremental", ("auto", "on", "off")),
                               ("merge_kernel", ("sort", "stream")),
-                              ("wrist_precull", ("auto", "on", "off"))):
+                              ("wrist_precull", ("auto", "on", "off")),
+                              ("kernel", ("wide", "fine")),
+                              ("wrist_kernel", ("inherit", "wide", "fine"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"unknown {name} {getattr(self, name)!r}")
 
@@ -80,7 +99,8 @@ def rasterize(cam: Camera, w2c, means3d, scales, quats, opacities, shs,
     if config.backend == "reference":
         pre = preprocess_gaussians(cam, w2c, means3d, scales, quats,
                                    opacities, shs, sh_degree)
-        return _composite_reference(cam, pre, bg_tuple(bg))
+        bin_w = FINE_W if config.kernel == "fine" else TILE_W
+        return _composite_reference(cam, pre, bg_tuple(bg), bin_w=bin_w)
     scenes = {"means3D": means3d[None], "scales": scales[None],
               "rotations": quats[None], "opacities": opacities[None],
               "shs": shs[None]}
@@ -93,14 +113,18 @@ def rasterize_batch(cam_w2c_list, scenes, sh_degree: int, bg=(0.0, 0.0, 0.0),
                     config: RasterConfig = RasterConfig(),
                     return_drops: bool = False, clip: bool = True,
                     device="cuda"):
-    """Render B environments x n_cams cameras with ONE compositor launch.
+    """Render B environments x n_cams cameras with ONE compositor launch:
+    K1 over (instance, 8x128 tile), or K4 over (instance, 8x16 fine tile)
+    with ``config.kernel == "fine"`` (the JAX package's
+    ``_rasterize_batch_fine``, without its memory chunking).
 
     Args:
       cam_w2c_list: list over cameras of (Camera, w2c (B, 4, 4)); all
         cameras share width/height.
       scenes: dict of stacked (B, N, ...) gaussian tensors (means3D,
         scales, rotations, opacities, shs), on ``device`` (the card unless
-        the caller passes "cpu", which runs K1's plain version).
+        the caller passes "cpu", which runs the compositor's plain
+        version).
     Returns:
       (rgb (n_cams, B, 3, H, W) clipped to [0, 1], depth (n_cams, B, H, W));
       with ``return_drops`` also an (n_cams, B) i32 of binning drops, always
@@ -120,6 +144,7 @@ def rasterize_batch(cam_w2c_list, scenes, sh_degree: int, bg=(0.0, 0.0, 0.0),
     B = scenes["means3D"].shape[0]
     n_tx = -(-w // TILE_W)
     n_ty = -(-h // TILE_H)
+    fine = config.kernel == "fine"
     shs = scenes["shs"] if sh_degree > 0 else scenes["shs"][:, :, :1]
     dev = scenes["means3D"].device
 
@@ -130,16 +155,17 @@ def rasterize_batch(cam_w2c_list, scenes, sh_degree: int, bg=(0.0, 0.0, 0.0),
         pre = preprocess_gaussians(cam, w2c_b, scenes["means3D"],
                                    scenes["scales"], scenes["rotations"],
                                    scenes["opacities"], shs, sh_degree)
-        bins = bin_gaussians(pre, n_tx, n_ty, TILE_W, TILE_H)
+        bins = (bin_gaussians_fine(pre, n_tx, n_ty) if fine
+                else bin_gaussians(pre, n_tx, n_ty, TILE_W, TILE_H))
         pair_parts.append(bins["pair_attrs"])
         starts.append(bins["tile_starts"] + offset)
         ends.append(bins["tile_ends"] + offset)
         drops.append(bins["n_large_dropped"])
         offset += bins["pair_attrs"].shape[1]
     pairs = torch.cat(pair_parts, dim=1)
-    rgb, depth = rasterize_tiles_batch(pairs, torch.cat(starts),
-                                       torch.cat(ends), n_tx, n_ty,
-                                       bg_tuple(bg))
+    composite = rasterize_fine_batch if fine else rasterize_tiles_batch
+    rgb, depth = composite(pairs, torch.cat(starts), torch.cat(ends), n_tx,
+                           n_ty, bg_tuple(bg))
     n_cams = len(cam_w2c_list)
     rgb = rgb[:, :, :h, :w].reshape(n_cams, B, 3, h, w)
     if clip:

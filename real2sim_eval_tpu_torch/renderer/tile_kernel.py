@@ -32,6 +32,9 @@ from .. import ext
 
 TILE_H = 8
 TILE_W = 128
+# the fine tiles of renderer/fine_kernel.py: 8 of them span one 8x128 tile
+FINE_W = 16
+GROUPS = TILE_W // FINE_W
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
@@ -70,10 +73,11 @@ def _check_dirty(device, tables: dict) -> int:
     return n
 
 
-def _check_caches(device, rgb_cache, depth_cache, n_tiles_x, n_tiles_y):
+def _check_caches(device, rgb_cache, depth_cache, n_tiles_x, n_tiles_y,
+                  tile_w: int = TILE_W):
     """Cached frames (..., 3, Hp, Wp) and (..., Hp, Wp) f32, leading dims
     alike."""
-    h_pad, w_pad = n_tiles_y * TILE_H, n_tiles_x * TILE_W
+    h_pad, w_pad = n_tiles_y * TILE_H, n_tiles_x * tile_w
     for name, t, tail in (("rgb_cache", rgb_cache, (3, h_pad, w_pad)),
                           ("depth_cache", depth_cache, (h_pad, w_pad))):
         if t.dtype != torch.float32 or tuple(t.shape[-len(tail):]) != tail:
@@ -141,29 +145,32 @@ def _composite_all(pairs, tile_starts, tile_ends, n_tiles_x: int,
     return rgb, depth, t_fin
 
 
-def _tile_pixels(tiles, n_tiles_x: int):
-    """f32 pixel coordinates (px, py), each (n_g, 8, 128), of tiles[g]."""
+def _tile_pixels(tiles, n_tiles_x: int, tile_w: int = TILE_W):
+    """f32 pixel coordinates (px, py), each (n_g, 8, tile_w), of tiles[g]
+    of a grid n_tiles_x tiles wide."""
     dev, tiles = tiles.device, tiles.long()
-    shape = (tiles.shape[0], TILE_H, TILE_W)
-    px = ((tiles % n_tiles_x) * TILE_W)[:, None, None] + torch.arange(
-        TILE_W, device=dev)[None, None, :]
+    shape = (tiles.shape[0], TILE_H, tile_w)
+    px = ((tiles % n_tiles_x) * tile_w)[:, None, None] + torch.arange(
+        tile_w, device=dev)[None, None, :]
     py = ((tiles // n_tiles_x) * TILE_H)[:, None, None] + torch.arange(
         TILE_H, device=dev)[None, :, None]
     return (px.to(torch.float32).expand(shape),
             py.to(torch.float32).expand(shape))
 
 
-def _blend_tiles_plain(pairs, starts, ends, tiles, n_tiles_x: int):
-    """The front-to-back blend of K1, K2 and K6 in plain PyTorch: tile
-    ``tiles[g]`` over pair range [starts[g], ends[g]) for every g at once,
-    one tensor op per pair slot across all (g, 8, 128) pixels.
-    Returns (Cr, Cg, Cb, T, D), each (n_g, 8, 128)."""
+def _blend_tiles_plain(pairs, starts, ends, tiles, n_tiles_x: int,
+                      tile_w: int = TILE_W):
+    """The front-to-back blend of K1, K2, K6 (8x128 tiles) and K4, K5
+    (``tile_w`` 16) in plain PyTorch: tile ``tiles[g]`` over pair range
+    [starts[g], ends[g]) for every g at once, one tensor op per pair slot
+    across all (g, 8, tile_w) pixels.
+    Returns (Cr, Cg, Cb, T, D), each (n_g, 8, tile_w)."""
     dev = pairs.device
     starts, ends = starts.long(), ends.long()
     n_g = starts.shape[0]
-    px, py = _tile_pixels(tiles, n_tiles_x)
+    px, py = _tile_pixels(tiles, n_tiles_x, tile_w)
 
-    shape = (n_g, TILE_H, TILE_W)
+    shape = (n_g, TILE_H, tile_w)
     T = torch.ones(shape, dtype=torch.float32, device=dev)
     Cr = torch.zeros(shape, dtype=torch.float32, device=dev)
     Cg = torch.zeros_like(Cr)
@@ -200,11 +207,12 @@ def _blend_tiles_plain(pairs, starts, ends, tiles, n_tiles_x: int):
     return Cr, Cg, Cb, T, D
 
 
-def _to_image(v, n_inst: int, n_tiles_x: int, n_tiles_y: int):
-    """(I * n_tiles, 8, 128) tiles -> (I, Hp, Wp) frames."""
-    return (v.reshape(n_inst, n_tiles_y, n_tiles_x, TILE_H, TILE_W)
+def _to_image(v, n_inst: int, n_tiles_x: int, n_tiles_y: int,
+              tile_w: int = TILE_W):
+    """(I * n_tiles, 8, tile_w) tiles -> (I, Hp, Wp) frames."""
+    return (v.reshape(n_inst, n_tiles_y, n_tiles_x, TILE_H, tile_w)
             .permute(0, 1, 3, 2, 4)
-            .reshape(n_inst, n_tiles_y * TILE_H, n_tiles_x * TILE_W))
+            .reshape(n_inst, n_tiles_y * TILE_H, n_tiles_x * tile_w))
 
 
 def _to_tiles(v, n_tiles_x: int, n_tiles_y: int):
@@ -215,18 +223,18 @@ def _to_tiles(v, n_tiles_x: int, n_tiles_y: int):
 
 def composite_tiles_plain(pairs, tile_starts, tile_ends, n_tiles_x: int,
                           n_tiles_y: int, bg=(0.0, 0.0, 0.0),
-                          with_t: bool = False):
-    """Plain PyTorch version of K1, and of K7 with ``with_t`` (the final
-    transmittance as a third output). Differentiable in ``pairs`` by
-    autograd."""
+                          with_t: bool = False, tile_w: int = TILE_W):
+    """Plain PyTorch version of K1, of K7 with ``with_t`` (the final
+    transmittance as a third output), and of K4 with ``tile_w`` 16 (a grid
+    of n_tiles_x fine tiles). Differentiable in ``pairs`` by autograd."""
     n_inst, n_tiles = tile_starts.shape
     tiles = torch.arange(n_inst * n_tiles, device=pairs.device) % n_tiles
     Cr, Cg, Cb, T, D = _blend_tiles_plain(pairs, tile_starts.reshape(-1),
                                           tile_ends.reshape(-1), tiles,
-                                          n_tiles_x)
+                                          n_tiles_x, tile_w)
 
     def to_image(v):
-        return _to_image(v, n_inst, n_tiles_x, n_tiles_y)
+        return _to_image(v, n_inst, n_tiles_x, n_tiles_y, tile_w)
 
     rgb = torch.stack([to_image(Cr + T * bg[0]), to_image(Cg + T * bg[1]),
                        to_image(Cb + T * bg[2])], dim=1)
@@ -418,18 +426,20 @@ def rasterize_tiles_sparse(pairs, inst_ids, tile_ids, starts, ends,
 
 def composite_sparse_plain(pairs, inst_ids, tile_ids, starts, ends,
                            rgb_cache, depth_cache, n_tiles_x: int,
-                           n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
-    """Plain PyTorch version of K2: K1's blend over the listed tiles only,
-    written into a copy of the cached frames."""
+                           n_tiles_y: int, bg=(0.0, 0.0, 0.0),
+                           tile_w: int = TILE_W):
+    """Plain PyTorch version of K2, and of K5 with ``tile_w`` 16 (a grid of
+    n_tiles_x fine tiles): K1's blend over the listed tiles only, written
+    into a copy of the cached frames."""
     rgb, depth = copy_frames(rgb_cache, depth_cache)
     if not inst_ids.shape[0]:
         return rgb, depth
     Cr, Cg, Cb, T, D = _blend_tiles_plain(pairs, starts, ends, tile_ids,
-                                          n_tiles_x)
+                                          n_tiles_x, tile_w)
     inst, tiles = inst_ids.long(), tile_ids.long()
     ty, tx = tiles // n_tiles_x, tiles % n_tiles_x
-    rgb6 = rgb.view(rgb.shape[0], 3, n_tiles_y, TILE_H, n_tiles_x, TILE_W)
-    dep5 = depth.view(depth.shape[0], n_tiles_y, TILE_H, n_tiles_x, TILE_W)
+    rgb6 = rgb.view(rgb.shape[0], 3, n_tiles_y, TILE_H, n_tiles_x, tile_w)
+    dep5 = depth.view(depth.shape[0], n_tiles_y, TILE_H, n_tiles_x, tile_w)
     rgb6[inst, :, ty, :, tx, :] = torch.stack(
         [Cr + T * bg[0], Cg + T * bg[1], Cb + T * bg[2]], dim=1)
     dep5[inst, ty, :, tx, :] = D

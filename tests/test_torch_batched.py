@@ -9,8 +9,13 @@ assets are carried across as numpy arrays (``convert.assets_from_numpy``),
 both evaluators take two velocity-controlled steps and render, and the
 states and frames are compared at the JAX package's own tolerances
 (tests/test_batched.py: particles 5e-5, grippers 1e-5). The port renders
-on each of its branches: the full pipeline (``incremental="off"``) and the
-incremental one with either merge (sort + K2, stream K6)."""
+on each of its branches: the full pipeline (``incremental="off"``), the
+incremental one with either merge (sort + K2, stream K6), the fine family
+(``kernel="fine"``: K5 for the fixed cameras, K4 for the wrist) and the
+wide fixed cameras with a fine wrist (``wrist_kernel="fine"``). Frames of
+the fine family are held to a JAX evaluator of the same state with
+``RasterConfig(backend="reference", kernel="fine")``, whose dense
+reference gates at the fine tiles too."""
 
 import dataclasses
 
@@ -24,10 +29,18 @@ from real2sim_eval_tpu_torch.convert import assets_from_numpy
 from real2sim_eval_tpu_torch.renderer import RasterConfig
 
 EPISODES = [0, 4]
-# the port's render branches: incremental off, or on with either merge
+# the port's render branches: incremental off, or on with either merge,
+# on the fine family, or with the wrist camera alone on it
 BRANCHES = {"off": RasterConfig(incremental="off"),
             "sort": RasterConfig(incremental="on", merge_kernel="sort"),
-            "stream": RasterConfig(incremental="on", merge_kernel="stream")}
+            "stream": RasterConfig(incremental="on", merge_kernel="stream"),
+            "fine": RasterConfig(incremental="on", kernel="fine"),
+            "wrist_fine": RasterConfig(incremental="on",
+                                       wrist_kernel="fine")}
+# the kernel family of the (fixed, wrist) frames of each branch
+FAMILIES = {"off": ("wide", "wide"), "sort": ("wide", "wide"),
+            "stream": ("wide", "wide"), "fine": ("fine", "fine"),
+            "wrist_fine": ("wide", "fine")}
 
 
 def jax_assets_tree(ev) -> dict:
@@ -141,11 +154,29 @@ def stepped(evaluators):
     return jev, tev, js, ts, j_out, jev.state
 
 
+@pytest.fixture(scope="module")
+def jax_fine_frames(stepped):
+    """The JAX frames of the stepped state rendered by the dense reference
+    gated at the fine tiles (``kernel="fine"``)."""
+    from real2sim_eval_tpu.parallel import BatchedEvaluator as JEval
+    from real2sim_eval_tpu.renderer import RasterConfig as JRC
+
+    jev, _, js, _, _, _ = stepped
+    jf = JEval(jev.cfg, episode_ids=EPISODES,
+               raster_config=JRC(backend="reference", kernel="fine"),
+               physics_backend="xla")
+    jf.state = js
+    return jf.render()
+
+
 @pytest.mark.parametrize("branch", list(BRANCHES))
-def test_whole_slice_matches_jax(stepped, branch):
+def test_whole_slice_matches_jax(stepped, jax_fine_frames, branch):
     from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
 
-    jev, tev0, js, ts, j_out, js_rendered = stepped
+    jev, tev0, js, ts, j_wide, js_rendered = stepped
+    fam = {"wide": j_wide, "fine": jax_fine_frames}
+    fixed, wrist = FAMILIES[branch]
+    j_out = fam[fixed][:2] + fam[wrist][2:4]
     tev = TEval(tev0.assets, EPISODES, raster_config=BRANCHES[branch],
                 device="cpu")
     assert tev.incremental == (branch != "off")
@@ -181,6 +212,9 @@ def test_whole_slice_matches_jax(stepped, branch):
     if tev.incremental:
         n_dirty = tev.render_telemetry[0][..., 0]
         assert (n_dirty > 0).all() and (n_dirty < 8).all()
+        if fixed == "fine":
+            n_fine = tev.render_stats["dirty_fine_tiles"]
+            assert ((n_dirty <= n_fine) & (n_fine <= 8 * n_dirty)).all()
     assert tev.render_drops() == {"fixed_dropped_tiles": 0,
                                   "fixed_dropped_pairs": 0,
                                   "fixed_binning_dropped": 0,
@@ -190,6 +224,27 @@ def test_whole_slice_matches_jax(stepped, branch):
     assert obs["images"].shape == (len(EPISODES), 1, 3, 64, 128)
     scenes = tev.compose_scenes()
     assert scenes["means3D"].shape[1] == scenes["shs"].shape[1]
+
+
+def test_wrist_kernel_changes_only_the_wrist_family(stepped):
+    """tests/test_wrist_kernel.py: ``wrist_kernel="fine"`` renders the
+    wrist camera with the fine family and leaves the fixed cameras' wide
+    frames as they are (bitwise); the wrist frames change, within the JAX
+    suite's bound between the families (2e-2 rgb, 1e-2 depth)."""
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
+
+    _, tev0, _, ts, _, _ = stepped
+    outs = {}
+    for branch in ("sort", "wrist_fine"):
+        tev = TEval(tev0.assets, EPISODES, raster_config=BRANCHES[branch],
+                    device="cpu")
+        tev.state = ts
+        outs[branch] = [o.numpy() for o in tev.render()]
+    for i in (0, 1):
+        np.testing.assert_array_equal(outs["wrist_fine"][i], outs["sort"][i])
+    d_rgb = np.abs(outs["wrist_fine"][2] - outs["sort"][2]).max()
+    d_dep = np.abs(outs["wrist_fine"][3] - outs["sort"][3]).max()
+    assert 0.0 < d_rgb < 2e-2 and d_dep < 1e-2, (d_rgb, d_dep)
 
 
 def test_degree3_scene_renders(evaluators):

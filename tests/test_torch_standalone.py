@@ -25,6 +25,8 @@ def test_importing_the_port_loads_no_jax():
             "real2sim_eval_tpu_torch.parallel, real2sim_eval_tpu_torch.convert, "
             "real2sim_eval_tpu_torch.testing, real2sim_eval_tpu_torch.ext, "
             "real2sim_eval_tpu_torch.renderer.incremental, "
+            "real2sim_eval_tpu_torch.renderer.incremental_fine, "
+            "real2sim_eval_tpu_torch.renderer.fine_kernel, "
             "real2sim_eval_tpu_torch.renderer.precull, "
             "real2sim_eval_tpu_torch.renderer.diff, "
             "real2sim_eval_tpu_torch.utils.ply, "
@@ -63,7 +65,8 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
     from real2sim_eval_tpu_torch.physics import PhysicsOptions
     from real2sim_eval_tpu_torch.physics.fused_step import make_fused_step_fn
-    from real2sim_eval_tpu_torch.renderer import Camera, rasterize_batch
+    from real2sim_eval_tpu_torch.renderer import (Camera, RasterConfig,
+                                                  rasterize_batch)
     from real2sim_eval_tpu_torch.utils import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -73,10 +76,12 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
         BatchedEvaluator(None, [0])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_fused_step_fn(PhysicsOptions())
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        rasterize_batch([(Camera(128, 64, 60.0, 60.0, 64.0, 32.0),
-                          torch.eye(4)[None])],
-                        {"means3D": torch.zeros((1, 1, 3))}, 0)
+    for kernel in ("wide", "fine"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            rasterize_batch([(Camera(128, 64, 60.0, 60.0, 64.0, 32.0),
+                              torch.eye(4)[None])],
+                            {"means3D": torch.zeros((1, 1, 3))}, 0,
+                            config=RasterConfig(kernel=kernel))
     assert resolve_device("cpu").type == "cpu"
 
 
