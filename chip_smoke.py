@@ -23,9 +23,12 @@ of the flagship scene (130,120 gaussians, degree-3 SH, 8 views at
 848x480), after holding K7 and K8 against their plain versions and the
 gradients against autograd of the plain compositor, with broken backwards
 that must fail the gate. Each kernel's check on a small scene comes first
-(K1, K7, K8, K2, K6, K4, K5, K3). Every line of standard output is one
-JSON object (the first holds the card's ``nvidia-smi`` name and power
-limit); the last line is ``{"ok": true, "device": {...}}``. Any failed
+(K1, K7, K8, K2, K6, K4, K5, K3): K1 and K7 bitwise their plain version,
+with K1's evaluations before and after its per-warp block cull. Every
+compositor's least time counts only the (pixel, pair) evaluations that
+reach a pixel (``pixel_pair_walks``).
+Every line of standard output is one JSON object (the first holds the
+card's ``nvidia-smi`` name and power limit); the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises and exits non-zero without that line; so does a machine
 without a CUDA device. Every host-timed phase runs before the first
 ``torch.profiler`` session; the device profiles come last, followed by
@@ -227,22 +230,35 @@ def composite_both(pairs, starts, ends, n_tx, n_ty, chunk_inst=16,
 
 
 def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
-                     tile_w: int = 128) -> tuple[int, int]:
-    """Sum over pixels of the pairs each pixel blends before it is done,
-    the pair that finishes it included: the compositor's work on this
-    input, whatever order a kernel does it in; and of those, the pairs
-    that contribute (the backward's gradient terms). Tile ``tiles[g]`` of
-    a grid n_tx tiles of 8 x tile_w pixels wide (8x128, or the 8x16 fine
-    tiles) walks pairs[starts[g]:ends[g]] (flat lists). Same tests as
-    ``tile_kernel._blend_tiles_plain``. Returns (walks, contributions)."""
+                     tile_w: int = 128, blocks: bool = False) -> dict:
+    """What a compositor's walk over this input holds, whatever order a
+    kernel does it in. Tile ``tiles[g]`` of a grid n_tx tiles of 8 x tile_w
+    pixels wide (8x128, or the 8x16 fine tiles) walks
+    pairs[starts[g]:ends[g]] (flat lists); same tests as
+    ``tile_kernel._blend_tiles_plain``. Returns a dict of sums over pixels:
+
+    - ``walks``: the pairs each pixel blends before it is done, the pair
+      that finishes it included;
+    - ``reaching``: of those, the pairs that pass power <= 0 and the alpha
+      floor, the evaluations an exact cull cannot skip (the bound's count);
+    - ``contributions``: the pairs that contribute (the backward's terms);
+
+    and with ``blocks`` (8x128 tiles) K1's evaluations before and after its
+    block cull, each until done at pair granularity (the kernel stops at
+    batch boundaries): ``tile_evals``, 1024 per pair until the tile's last
+    pixel is done (the kernel without the cull), and ``block_evals``, 128
+    per pair that ``tile_kernel.block_cull_keep`` keeps for an 8x16 block
+    until the block's last pixel is done (each warp's walk)."""
     import torch
 
     from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
 
     dev = pairs.device
     chunk = 16 * 420 * 128 // tile_w          # tiles of 860,160 pixels
-    total = torch.zeros((), dtype=torch.int64, device=dev)
-    contribs = torch.zeros((), dtype=torch.int64, device=dev)
+    nb = tile_w // tk.BLOCK_W
+    out = {k: torch.zeros((), dtype=torch.int64, device=dev)
+           for k in ("walks", "reaching", "contributions", "tile_evals",
+                     "block_evals")}
     for i in range(0, starts.shape[0], chunk):
         s = starts[i:i + chunk].long()
         e = ends[i:i + chunk].long()
@@ -250,47 +266,65 @@ def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
         px, py = tk._tile_pixels(t, n_tx, tile_w)
         T = torch.ones((s.shape[0], tk.TILE_H, tile_w), device=dev)
         done = torch.zeros_like(T, dtype=torch.bool)
+        bx0 = ((t % n_tx) * tile_w)[:, None].float() + torch.arange(
+            0, tile_w, tk.BLOCK_W, device=dev).float()[None]    # (g, nb)
+        by0 = ((t // n_tx) * tk.TILE_H)[:, None].float().expand_as(bx0)
         for j in range(int((e - s).max()) if s.numel() else 0):
             in_range = (s + j < e)[:, None, None]
             live = in_range & ~done
-            total += live.sum()
+            out["walks"] += live.sum()
             if j % 32 == 31 and not bool(live.any()):
                 break
             a = pairs[:, torch.where(s + j < e, s + j, 0)][:, :, None, None]
+            if blocks:
+                out["tile_evals"] += (live.flatten(1).any(1).sum()
+                                      * tk.TILE_H * tile_w)
+                blive = live.reshape(-1, tk.TILE_H, nb, tk.BLOCK_W).any(
+                    dim=3).any(dim=1)                            # (g, nb)
+                keep = tk.block_cull_keep(a[:, :, 0], bx0, by0)
+                out["block_evals"] += ((blive & keep).sum()
+                                       * tk.TILE_H * tk.BLOCK_W)
             dx, dy = a[0] - px, a[1] - py
             power = -0.5 * (a[2] * dx * dx + a[4] * dy * dy) - a[3] * dx * dy
             alpha = torch.clamp(a[5] * torch.exp(power), max=tk.ALPHA_MAX)
             ok = in_range & (power <= 0.0) & (alpha >= tk.ALPHA_MIN)
+            out["reaching"] += (ok & ~done).sum()
             test_T = T * (1.0 - alpha)
             finish = ok & (test_T < tk.T_EPS)
             contrib = ok & ~finish & ~done
-            contribs += contrib.sum()
+            out["contributions"] += contrib.sum()
             T = torch.where(contrib, test_T, T)
             done = done | finish
-    return int(total), int(contribs)
+    res = {k: int(v) for k, v in out.items()}
+    if not blocks:
+        del res["tile_evals"], res["block_evals"]
+    return res
 
 
-def bound_ms(n_bytes: float, walks: int) -> tuple[float, str]:
-    """Least time of a compositor: bytes over the HBM rate or its blends'
-    f32 operations over the f32 rate, whichever is larger."""
+def bound_ms(n_bytes: float, reaching: int) -> tuple[float, str]:
+    """Least time of a compositor: bytes over the HBM rate or the f32
+    operations of its reaching (pixel, pair) blends over the f32 rate,
+    whichever is larger. An exact cull computes the same function without
+    evaluating the pairs that do not reach a pixel, so only the reaching
+    evaluations are the compositor's necessary work."""
     t_bytes = n_bytes / PEAK_BYTES_S
-    t_ops = float(walks) * K1_OPS_PER_EVAL / PEAK_F32_OPS_S
+    t_ops = float(reaching) * K1_OPS_PER_EVAL / PEAK_F32_OPS_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bound_ms(pairs, starts, rgb, walks: int) -> tuple[float, str]:
+def k1_bound_ms(pairs, starts, rgb, reaching: int) -> tuple[float, str]:
     return bound_ms(pairs.numel() * 4 + 2 * starts.numel() * 4
-                    + rgb.numel() * 4 * 4 // 3, walks)
+                    + rgb.numel() * 4 * 4 // 3, reaching)
 
 
 def sparse_bound_ms(rows_read: int, n_tables: int, n_dirty: int,
-                    walks: int, tile_w: int = 128) -> tuple[float, str]:
+                    reaching: int, tile_w: int = 128) -> tuple[float, str]:
     """K2/K6/K5: the pair rows read (10 f32 each), the dirty-list tables
     (i32) and the dirty tiles written (rgb + depth, 8 x tile_w f32
     each)."""
     return bound_ms(rows_read * 40 + n_tables * n_dirty * 4
-                    + n_dirty * 8 * tile_w * 4 * 4, walks)
+                    + n_dirty * 8 * tile_w * 4 * 4, reaching)
 
 
 def k3_bound_ms(opts, tab, state) -> tuple[float, str]:
@@ -342,19 +376,29 @@ def small_flagship_bins(fine: bool = False):
 
 
 def check_k1_small():
-    """K1 vs its plain version on small_flagship_bins' scene."""
+    """K1 vs its plain version on small_flagship_bins' scene: bitwise (its
+    block cull may skip only what changes no pixel), with its evaluations
+    before and after the cull."""
+    import torch
+
     bins, n_tx, n_ty, n = small_flagship_bins()
-    rgb_k, dep_k, rgb_p, dep_p, _ = composite_both(
-        bins["pair_attrs"], bins["tile_starts"], bins["tile_ends"], n_tx, n_ty)
-    err = float((rgb_k - rgb_p).abs().max())
-    flips = depth_flips(dep_k, dep_p)
+    pairs, starts, ends = (bins["pair_attrs"], bins["tile_starts"],
+                           bins["tile_ends"])
+    rgb_k, dep_k, rgb_p, dep_p, _ = composite_both(pairs, starts, ends, n_tx,
+                                                   n_ty)
+    w = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
+                         torch.arange(starts.numel(), device=DEVICE)
+                         % starts.shape[1], n_tx, blocks=True)
     out = {"phase": "k1_check", "gaussians": n,
-           "pairs": int(bins["pair_attrs"].shape[1]), "max_abs_rgb": err,
-           "depth_flips": flips, "rgb_tol": RGB_TOL,
-           "flips_limit": flips_limit(dep_k.numel())}
+           "pairs": int(pairs.shape[1]),
+           "max_abs_rgb": float((rgb_k - rgb_p).abs().max()),
+           "differing_depth_pixels": int((dep_k != dep_p).sum()),
+           "evaluations": {"tile_level": w["tile_evals"],
+                           "block_level": w["block_evals"]},
+           "pixel_pair_blends": w["walks"], "reaching_blends": w["reaching"]}
     emit(out)
-    if err > RGB_TOL or flips > out["flips_limit"]:
-        fail(f"K1 disagrees with its plain version: {out}")
+    if out["max_abs_rgb"] or out["differing_depth_pixels"]:
+        fail(f"K1 is not bitwise its plain version: {out}")
 
 
 def check_k7_small():
@@ -1387,9 +1431,9 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     rgb_k, dep_k, rgb_p, dep_p, k1_plain_ms = composite_both(
         pairs, starts, ends, n_tx, n_ty)
     tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
-    walks, _ = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
-                                tiles, n_tx)
-    k1_bound, k1_by = k1_bound_ms(pairs, starts, rgb_k, walks)
+    w1 = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
+                          tiles, n_tx, blocks=True)
+    k1_bound, k1_by = k1_bound_ms(pairs, starts, rgb_k, w1["reaching"])
     k1 = {"name": "tile_composite", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/tile_composite.cu",
           "replaces": "real2sim_eval_tpu/renderer/tile_kernel.py:157",
@@ -1399,10 +1443,15 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
           "bound_by": k1_by, "library_ms": None}
     flips = {"tile_composite": depth_flips(dep_k, dep_p)}
     limits = {"tile_composite": flips_limit(dep_k.numel())}
+    k1_depth_diff = int((dep_k != dep_p).sum())
     inputs = {"tile_composite": {"instances": int(starts.shape[0]),
                                  "tiles": int(starts.numel()),
                                  "pairs": int(pairs.shape[1]),
-                                 "pixel_pair_blends": walks}}
+                                 "pixel_pair_blends": w1["walks"],
+                                 "reaching_blends": w1["reaching"],
+                                 "evaluations": {
+                                     "tile_level": w1["tile_evals"],
+                                     "block_level": w1["block_evals"]}}}
 
     args2 = k2_seen["args"]
     m_pairs, inst, tile, m_st, m_en, rgb_c, dep_c, ntx, nty, bg = args2
@@ -1412,9 +1461,10 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     rgb_k, dep_k = tk.rasterize_tiles_sparse(*args2)
     k2_plain_ms, (rgb_p, dep_p) = time_host(
         lambda: tk.composite_sparse_plain(*args2))
-    walks, _ = pixel_pair_walks(m_pairs, m_st, m_en, tile, ntx)
+    w2 = pixel_pair_walks(m_pairs, m_st, m_en, tile, ntx)
     rows = int((m_en - m_st).sum())
-    k2_bound, k2_by = sparse_bound_ms(rows, 4, int(inst.numel()), walks)
+    k2_bound, k2_by = sparse_bound_ms(rows, 4, int(inst.numel()),
+                                      w2["reaching"])
     k2 = {"name": "tile_sparse", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/tile_sparse.cu",
           "replaces": "real2sim_eval_tpu/renderer/tile_kernel.py:176",
@@ -1427,7 +1477,8 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     inputs["tile_sparse"] = {"instances": int(rgb_k.shape[0]),
                              "dirty_tiles": int(inst.numel()),
                              "merged_pairs": rows,
-                             "pixel_pair_blends": walks}
+                             "pixel_pair_blends": w2["walks"],
+                             "reaching_blends": w2["reaching"]}
 
     args6 = k6_seen["args"]
     data_s, data_d, inst, tile, ss, se, ds, de, rgb_c, dep_c = args6[:10]
@@ -1442,9 +1493,10 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     # the merged order of K6 is K2's: K2 over the same merge, bitwise
     rgb_2, dep_2 = tk.rasterize_tiles_sparse(merged, inst, tile, m_st, m_en,
                                              rgb_c, dep_c, ntx, nty, bg)
-    walks, _ = pixel_pair_walks(merged, m_st, m_en, tile, ntx)
+    w6 = pixel_pair_walks(merged, m_st, m_en, tile, ntx)
     rows = int((se - ss).sum() + (de - ds).sum())
-    k6_bound, k6_by = sparse_bound_ms(rows, 6, int(inst.numel()), walks)
+    k6_bound, k6_by = sparse_bound_ms(rows, 6, int(inst.numel()),
+                                      w6["reaching"])
     k6 = {"name": "tile_sparse_merge", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/tile_sparse_merge.cu",
           "replaces": "real2sim_eval_tpu/renderer/tile_kernel.py:533",
@@ -1458,7 +1510,8 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     inputs["tile_sparse_merge"] = {"instances": int(rgb_k.shape[0]),
                                    "dirty_tiles": int(inst.numel()),
                                    "merged_pairs": rows,
-                                   "pixel_pair_blends": walks,
+                                   "pixel_pair_blends": w6["walks"],
+                                   "reaching_blends": w6["reaching"],
                                    "differing_pixels_vs_k2": k6_vs_k2}
     inputs["spring_mass_step"] = {
         "envs": int(state.x.shape[0]), "particles": int(state.x.shape[1]),
@@ -1466,6 +1519,9 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     emit({"phase": "kernel_inputs", "depth_flips": flips,
           "flips_limits": limits, **inputs})
     kernels = [k3, k1, k2, k6]
+    if k1["max_abs_err"] or k1_depth_diff:
+        fail(f"K1 is not bitwise its plain version at the wrist's shapes: "
+             f"{k1}, {k1_depth_diff} depth pixels differ")
     for k in kernels[1:]:
         if (k["max_abs_err"] > RGB_TOL
                 or flips[k["name"]] > limits[k["name"]]):
@@ -1505,9 +1561,9 @@ def measure_fine_kernels(ev_f, actions, launches_f):
     rgb_k, dep_k, rgb_p, dep_p, k4_plain_ms = composite_both(
         pairs, starts, ends, nsx, nsy, fine=True)
     tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
-    walks, _ = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
-                                tiles, nsx * 8, tile_w=16)
-    k4_bound, k4_by = k1_bound_ms(pairs, starts, rgb_k, walks)
+    w4 = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
+                          tiles, nsx * 8, tile_w=16)
+    k4_bound, k4_by = k1_bound_ms(pairs, starts, rgb_k, w4["reaching"])
     k4 = {"name": "fine_composite", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/fine_composite.cu",
           "replaces": "real2sim_eval_tpu/renderer/fine_kernel.py:78",
@@ -1524,7 +1580,7 @@ def measure_fine_kernels(ev_f, actions, launches_f):
         "pairs_per_wrist_instance": {"mean": float(per_inst.mean()),
                                      "max": int(per_inst.max())},
         "longest_fine_tile": int((ends - starts).max()),
-        "pixel_pair_blends": walks}}
+        "pixel_pair_blends": w4["walks"], "reaching_blends": w4["reaching"]}}
 
     args5 = k5_seen["args"]
     m_pairs, inst, tile, m_st, m_en, rgb_c, dep_c, nsx5, nsy5, bg = args5
@@ -1535,11 +1591,10 @@ def measure_fine_kernels(ev_f, actions, launches_f):
     rgb_k, dep_k = fk.rasterize_fine_sparse(*args5)
     k5_plain_ms, (rgb_p, dep_p) = time_host(
         lambda: fk.composite_fine_sparse_plain(*args5))
-    walks, _ = pixel_pair_walks(m_pairs, m_st, m_en, tile, nsx5 * 8,
-                                tile_w=16)
+    w5 = pixel_pair_walks(m_pairs, m_st, m_en, tile, nsx5 * 8, tile_w=16)
     rows = int((m_en - m_st).sum())
-    k5_bound, k5_by = sparse_bound_ms(rows, 4, int(inst.numel()), walks,
-                                      tile_w=16)
+    k5_bound, k5_by = sparse_bound_ms(rows, 4, int(inst.numel()),
+                                      w5["reaching"], tile_w=16)
     k5 = {"name": "fine_sparse", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/fine_sparse.cu",
           "replaces": "real2sim_eval_tpu/renderer/incremental_fine.py:218",
@@ -1552,7 +1607,8 @@ def measure_fine_kernels(ev_f, actions, launches_f):
     inputs["fine_sparse"] = {"instances": int(rgb_k.shape[0]),
                              "dirty_fine_tiles": int(inst.numel()),
                              "merged_pairs": rows,
-                             "pixel_pair_blends": walks}
+                             "pixel_pair_blends": w5["walks"],
+                             "reaching_blends": w5["reaching"]}
     emit({"phase": "fine_kernel_inputs", "depth_flips": flips,
           "flips_limits": limits, **inputs})
     for k in (k4, k5):
@@ -1717,15 +1773,17 @@ def measure_refine_kernels(launches, k7_args, k8_args):
                     for a in k8_args)
     pairs, starts, ends, n_tx, n_ty, bg = k7_args
     k7_ms = time_cuda(lambda: tk.rasterize_tiles_batch_t(*k7_args), 10)
-    rgb_k, _, t_k = tk.rasterize_tiles_batch_t(*k7_args)
+    rgb_k, dep_k, t_k = tk.rasterize_tiles_batch_t(*k7_args)
+    rgb_1, dep_1 = tk.rasterize_tiles_batch(*k7_args)
+    k7_vs_k1 = int(((rgb_k != rgb_1).any(dim=1) | (dep_k != dep_1)).sum())
     k7_plain_ms, (rgb_p, _, t_p) = time_host(
         lambda: tk.composite_tiles_plain(*k7_args, with_t=True))
     tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
-    walks, contribs = pixel_pair_walks(pairs, starts.reshape(-1),
-                                       ends.reshape(-1), tiles, n_tx)
+    w7 = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1), tiles,
+                          n_tx, blocks=True)
     # rgb, depth and T written: 5 planes
     k7_bound, k7_by = bound_ms(pairs.numel() * 4 + 2 * starts.numel() * 4
-                               + rgb_k.numel() * 4 * 5 // 3, walks)
+                               + rgb_k.numel() * 4 * 5 // 3, w7["reaching"])
     k7 = {"name": "tile_composite_t", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/tile_composite.cu",
           "replaces": "real2sim_eval_tpu/renderer/tile_kernel.py:264",
@@ -1744,8 +1802,9 @@ def measure_refine_kernels(launches, k7_args, k8_args):
     n_bytes = (pairs.numel() * 4 * 2 + 2 * starts.numel() * 4
                + rgb_k.numel() * 4 * 8 // 3)
     t_bytes = n_bytes / PEAK_BYTES_S
-    t_ops = (walks * K1_OPS_PER_EVAL
-             + contribs * K8_OPS_PER_CONTRIB) / PEAK_F32_OPS_S
+    # the forward walk K8 repeats, at its reaching evaluations
+    t_ops = (w7["reaching"] * K1_OPS_PER_EVAL
+             + w7["contributions"] * K8_OPS_PER_CONTRIB) / PEAK_F32_OPS_S
     k8_rel = lane_gap(table_k, table_p)
     k8 = {"name": "tile_backward", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/tile_backward.cu",
@@ -1758,10 +1817,16 @@ def measure_refine_kernels(launches, k7_args, k8_args):
           "library_ms": None}
     emit({"phase": "refine_kernel_inputs", "instances": int(starts.shape[0]),
           "tiles": int(starts.numel()), "pairs": int(pairs.shape[1]),
-          "pixel_pair_blends": walks, "contributing_blends": contribs,
+          "pixel_pair_blends": w7["walks"],
+          "reaching_blends": w7["reaching"],
+          "contributing_blends": w7["contributions"],
+          "k7_evaluations": {"tile_level": w7["tile_evals"],
+                             "block_level": w7["block_evals"]},
           "k8_vs_plain_max_rel": k8_rel, "k8_plain_tol": K8_PLAIN_TOL,
-          "k7_max_abs_t": float((t_k - t_p).abs().max())})
-    if k7["max_abs_err"] > RGB_TOL or float((t_k - t_p).abs().max()) > T_TOL:
+          "k7_max_abs_t": float((t_k - t_p).abs().max()),
+          "k7_vs_k1_differing_pixels": k7_vs_k1})
+    if (k7["max_abs_err"] > RGB_TOL or float((t_k - t_p).abs().max()) > T_TOL
+            or k7_vs_k1):
         fail(f"K7 disagrees at the refinement's shapes: {k7}")
     if k8_rel > K8_PLAIN_TOL:
         fail(f"K8 disagrees at the refinement's shapes: {k8_rel}")

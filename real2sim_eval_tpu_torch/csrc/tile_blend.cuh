@@ -12,7 +12,11 @@
 // takes 256 threads with 4 pixels each (rows r, r+2, r+4, r+6), the fine
 // tile 128 threads with one pixel each. A batch of up to NT pairs sits in
 // shared memory as structure-of-arrays, sh[attr][pair], attrs [x, y, conic
-// a/b/c, opacity, r, g, b, depth].
+// a/b/c, opacity, r, g, b, depth]. K1 and K7 use WarpPixels instead (each
+// warp of the wide tile's CTA owns one 8x16 block) and blend_range_culled,
+// which skips the pairs that provably cannot reach a warp's block. Every
+// compositor evaluates a (pixel, pair) through blend_pixel, so their
+// per-pixel sequences of operations are one.
 //
 // Numerics: build without --use_fast_math and with --fmad=false, and use
 // expf: every comparison below (power <= 0, alpha >= 1/255, test_T < 1e-4,
@@ -87,13 +91,56 @@ __device__ __forceinline__ void init_pixels(PixelsT<TW, NT>& p, int tx,
 
 // 1 while any of this thread's pixels can still take a contribution; a
 // CTA stops once __syncthreads_count of it is 0 (the TPU kernel's
-// while_loop condition).
-template <int TW, int NT>
-__device__ __forceinline__ int any_live(const PixelsT<TW, NT>& p) {
+// while_loop condition). P is PixelsT or WarpPixels.
+template <typename P>
+__device__ __forceinline__ int any_live(const P& p) {
   int live = 0;
 #pragma unroll
-  for (int k = 0; k < PixelsT<TW, NT>::kPix; ++k) live |= !p.done[k];
+  for (int k = 0; k < P::kPix; ++k) live |= !p.done[k];
   return live;
+}
+
+// One pair over one pixel at (px, py): the TPU kernel's per-(pixel, pair)
+// step, the only place any compositor evaluates it.
+__device__ __forceinline__ void blend_pixel(float gx, float gy, float ca,
+                                            float cb, float cc, float op,
+                                            float r, float gg, float b,
+                                            float dep, float px, float py,
+                                            float& T, float& Cr, float& Cg,
+                                            float& Cb, float& D, bool& done) {
+  const float dx = gx - px;
+  const float dy = gy - py;
+  const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+  float alpha = fminf(kAlphaMax, op * expf(power));
+  if (!(power <= 0.0f)) alpha = 0.0f;
+  const bool alpha_ok = alpha >= kAlphaMin;
+  const float test_T = T * (1.0f - alpha);
+  const bool would_done = alpha_ok && (test_T < kTEps);
+  const bool contrib = alpha_ok && !would_done && !done;
+  if (contrib) {
+    const float aT = alpha * T;
+    Cr = Cr + aT * r;
+    Cg = Cg + aT * gg;
+    Cb = Cb + aT * b;
+    if (T > 0.5f && test_T < 0.5f) D = dep;
+    T = test_T;
+  }
+  done = done || would_done;
+}
+
+// Pair j of a shared batch over the kPix pixels of p, in order.
+template <typename P, int NT>
+__device__ __forceinline__ void blend_pair(const float (*sh)[NT], int j,
+                                           P& p) {
+  const float gx = sh[0][j], gy = sh[1][j];
+  const float ca = sh[2][j], cb = sh[3][j], cc = sh[4][j];
+  const float op = sh[5][j];
+  const float r = sh[6][j], gg = sh[7][j], b = sh[8][j];
+  const float dep = sh[9][j];
+#pragma unroll
+  for (int k = 0; k < P::kPix; ++k)
+    blend_pixel(gx, gy, ca, cb, cc, op, r, gg, b, dep, p.px, p.py[k], p.T[k],
+                p.Cr[k], p.Cg[k], p.Cb[k], p.D[k], p.done[k]);
 }
 
 // Blend the first n pairs of the shared batch, in order, into p.
@@ -101,34 +148,7 @@ template <int TW, int NT>
 __device__ __forceinline__ void blend_batch(
     typename Same<const float (*)[NT]>::type sh, int n,
     PixelsT<TW, NT>& p) {
-  for (int j = 0; j < n; ++j) {
-    const float gx = sh[0][j], gy = sh[1][j];
-    const float ca = sh[2][j], cb = sh[3][j], cc = sh[4][j];
-    const float op = sh[5][j];
-    const float r = sh[6][j], gg = sh[7][j], b = sh[8][j];
-    const float dep = sh[9][j];
-#pragma unroll
-    for (int k = 0; k < PixelsT<TW, NT>::kPix; ++k) {
-      const float dx = gx - p.px;
-      const float dy = gy - p.py[k];
-      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-      float alpha = fminf(kAlphaMax, op * expf(power));
-      if (!(power <= 0.0f)) alpha = 0.0f;
-      const bool alpha_ok = alpha >= kAlphaMin;
-      const float test_T = p.T[k] * (1.0f - alpha);
-      const bool would_done = alpha_ok && (test_T < kTEps);
-      const bool contrib = alpha_ok && !would_done && !p.done[k];
-      if (contrib) {
-        const float aT = alpha * p.T[k];
-        p.Cr[k] = p.Cr[k] + aT * r;
-        p.Cg[k] = p.Cg[k] + aT * gg;
-        p.Cb[k] = p.Cb[k] + aT * b;
-        if (p.T[k] > 0.5f && test_T < 0.5f) p.D[k] = dep;
-        p.T[k] = test_T;
-      }
-      p.done[k] = p.done[k] || would_done;
-    }
-  }
+  for (int j = 0; j < n; ++j) blend_pair(sh, j, p);
 }
 
 // Blend the contiguous pair range [start, end) of a (10, n_pairs) table,
@@ -153,6 +173,169 @@ __device__ __forceinline__ void blend_range(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1 and K7: one 8x16 block of the 8x128 tile per warp
+// ---------------------------------------------------------------------------
+
+constexpr int kBlockW = 16;
+constexpr int kWarpBlocks = kThreads / 32;
+static_assert(kWarpBlocks * kBlockW == kTileW, "8 warps span the wide tile");
+
+// The 4 pixels of a lane of warp w: column 16 w + lane % 16, rows
+// lane / 16 + {0, 2, 4, 6}; the warp's 32 lanes cover its 8x16 block.
+struct WarpPixels {
+  static constexpr int kPix = 4;
+  float px;
+  float py[kPix];
+  float T[kPix], Cr[kPix], Cg[kPix], Cb[kPix], D[kPix];
+  bool done[kPix];
+};
+
+__device__ __forceinline__ int warp_col() {
+  return (threadIdx.x / 32) * kBlockW + (threadIdx.x % kBlockW);
+}
+
+__device__ __forceinline__ int warp_row0() { return (threadIdx.x % 32) / 16; }
+
+__device__ __forceinline__ void init_pixels(WarpPixels& p, int tx, int ty) {
+  p.px = (float)(tx * kTileW + warp_col());
+#pragma unroll
+  for (int k = 0; k < WarpPixels::kPix; ++k) {
+    p.py[k] = (float)(ty * kTileH + warp_row0() + 2 * k);
+    p.T[k] = 1.0f;
+    p.Cr[k] = 0.0f;
+    p.Cg[k] = 0.0f;
+    p.Cb[k] = 0.0f;
+    p.D[k] = kDepthDefault;
+    p.done[k] = false;
+  }
+}
+
+// The block cull's margin (renderer/tile_kernel.py ``block_cull_keep`` is
+// the same test in PyTorch). A pixel takes a pair only where its f32 power
+// p = -Q/2, Q = a dx^2 + 2 b dx dy + c dy^2, has fl(op * expf(p)) >=
+// f32(1/255) > 1/255; expf within 2 ulp and the product's rounding give
+// Q(pixel) <= 2 ln(255 op) + 2 eta, eta = 2^-22 + 2^-24, for the f32 Q of
+// the pixel. That f32 Q differs from the exact one by at most ~8 u S, u =
+// 2^-24, S = |a| dx^2 + 2 |b| |dx dy| + |c| dy^2: rounding is relative to
+// the terms, not to Q, which thin rotated splats cancel to near 0. The
+// block's exact minimum of Q lies below every pixel's; its f32 estimate (a
+// candidate of the binning's formulas, on a box whose corners are rounded
+// once or twice) exceeds it by at most ~10 u S more (4 u S from the box's
+// shift along the gradient, 6 u S from evaluating Q; a candidate off the
+// exact minimiser by rounding adds only O(u^2 S)). S is largest at the
+// box's far corner, so keeping every pair with
+//   qmin <= 2 ln(255 op) + kCullAbs + kCullRel * S(far corner)
+// keeps every pair a pixel of the block takes: kCullRel = 1e-5 is ~168 u
+// against the ~18 u needed, kCullAbs = 1e-4 covers 2 eta and the f32
+// threshold's own error (~3e-6). A wider margin only costs speed.
+constexpr float kCullAbs = 1e-4f;
+constexpr float kCullRel = 1e-5f;
+
+// false only where pair (gx, gy, conic a/b/c, op) adds nothing to any pixel
+// of the 8x16 block whose first pixel is (bx0, by0): the binning's exact
+// conic cull (renderer/binning.py _exact_cull_keep) on the block, with the
+// margin above. A conic that is not positive definite, a non-finite
+// attribute or a negative opacity is always kept.
+__device__ __forceinline__ bool block_keep(float gx, float gy, float ca,
+                                           float cb, float cc, float op,
+                                           float bx0, float by0) {
+  if (!(ca >= 1e-20f && cc >= 1e-20f && ca * cc - cb * cb > 0.0f &&
+        op >= 0.0f && isfinite(gx + gy + ca + cb + cc + op)))
+    return true;
+  const float lx = bx0 - gx, ux = lx + (float)(kBlockW - 1);
+  const float ly = by0 - gy, uy = ly + (float)(kTileH - 1);
+  const float ica = 1.0f / ca, icc = 1.0f / cc;
+  const auto q = [&](float dx, float dy) {
+    return ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy;
+  };
+  const auto cl = [](float v, float lo, float hi) {
+    return fminf(fmaxf(v, lo), hi);
+  };
+  const float q0 = q(cl(0.0f, lx, ux), cl(0.0f, ly, uy));
+  const float q1 = q(lx, cl(-cb * lx * icc, ly, uy));
+  const float q2 = q(ux, cl(-cb * ux * icc, ly, uy));
+  const float q3 = q(cl(-cb * ly * ica, lx, ux), ly);
+  const float q4 = q(cl(-cb * uy * ica, lx, ux), uy);
+  const float qmin = fminf(fminf(fminf(q0, q1), fminf(q2, q3)), q4);
+  const float X = fmaxf(fabsf(lx), fabsf(ux));
+  const float Y = fmaxf(fabsf(ly), fabsf(uy));
+  const float mag = ca * X * X + 2.0f * fabsf(cb) * X * Y + cc * Y * Y;
+  const float thr = 2.0f * logf(255.0f * fmaxf(op, 1e-12f)) + kCullAbs +
+                    kCullRel * mag;
+  return !(qmin > thr);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Blend the contiguous pair range [start, end) of a (10, n_pairs) table
+// into the warp blocks' pixels: batches of kBatch pairs through two shared
+// buffers, batch n + 1 loading by cp.async while batch n blends. After a
+// batch lands each warp tests it against its block (lane l tests pairs l,
+// l + 32, ...; __ballot_sync gathers 8 masks) and blends only the kept
+// pairs, in ascending order; a warp whose 128 pixels are all done skips
+// both. The CTA stops once every pixel is done, as the TPU kernel's
+// while_loop does.
+__device__ __forceinline__ void blend_range_culled(
+    const float* __restrict__ pairs, long long n_pairs, int start, int end,
+    float (*sh)[kAttr][kBatch], WarpPixels& p, float bx0, float by0) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  const auto load = [&](int buf, int base) {
+    const int n = min(kBatch, end - base);
+    if (tid < n) {
+#pragma unroll
+      for (int a = 0; a < kAttr; ++a)
+        cp_async4(&sh[buf][a][tid],
+                  pairs + (long long)a * n_pairs + base + tid);
+    }
+    cp_async_commit();
+  };
+  if (start < end) load(0, start);
+  int buf = 0;
+  for (int base = start; base < end; base += kBatch, buf ^= 1) {
+    // also the barrier that retires the previous batch's shared reads,
+    // whose buffer the next load refills
+    if (__syncthreads_count(any_live(p)) == 0) break;
+    if (base + kBatch < end) {
+      load(buf ^ 1, base + kBatch);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (!__any_sync(0xffffffffu, any_live(p))) continue;
+    const float (*b)[kBatch] = sh[buf];
+    const int n = min(kBatch, end - base);
+    unsigned keep[kBatch / 32];
+#pragma unroll
+    for (int k = 0; k < kBatch / 32; ++k) {
+      const int j = lane + 32 * k;
+      keep[k] = __ballot_sync(
+          0xffffffffu, j < n && block_keep(b[0][j], b[1][j], b[2][j], b[3][j],
+                                           b[4][j], b[5][j], bx0, by0));
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch / 32; ++k) {
+      for (unsigned m = keep[k]; m; m &= m - 1)
+        blend_pair(b, 32 * k + __ffs(m) - 1, p);
+    }
+  }
+  cp_async_wait<0>();   // no copy may land after the CTA has left
+}
+
 // out = C + T * bg and the median depth, into instance inst's frame of
 // h_pad x w_pad pixels at tile (tx, ty); the final transmittance T too
 // where t_fin is not null (K7).
@@ -172,6 +355,28 @@ __device__ __forceinline__ void store_pixels(const PixelsT<TW, NT>& p,
     const long long pix =
         (long long)(ty * kTileH + row0 + P::kRowStep * k) * w_pad + tx * TW +
         col;
+    float* out = rgb + (long long)inst * 3 * plane + pix;
+    out[0] = p.Cr[k] + p.T[k] * bg0;
+    out[plane] = p.Cg[k] + p.T[k] * bg1;
+    out[2 * plane] = p.Cb[k] + p.T[k] * bg2;
+    depth[(long long)inst * plane + pix] = p.D[k];
+    if (t_fin) t_fin[(long long)inst * plane + pix] = p.T[k];
+  }
+}
+
+// store_pixels for the warp blocks of K1 and K7.
+__device__ __forceinline__ void store_pixels(const WarpPixels& p, int inst,
+                                             int tx, int ty, int h_pad,
+                                             int w_pad, float bg0, float bg1,
+                                             float bg2, float* rgb,
+                                             float* depth,
+                                             float* t_fin = nullptr) {
+  const long long plane = (long long)h_pad * w_pad;
+#pragma unroll
+  for (int k = 0; k < WarpPixels::kPix; ++k) {
+    const long long pix =
+        (long long)(ty * kTileH + warp_row0() + 2 * k) * w_pad +
+        tx * kTileW + warp_col();
     float* out = rgb + (long long)inst * 3 * plane + pix;
     out[0] = p.Cr[k] + p.T[k] * bg0;
     out[plane] = p.Cg[k] + p.T[k] * bg1;

@@ -6,7 +6,9 @@ hand-written CUDA kernel for tensors on the card and runs the plain
 PyTorch version of the same function for tensors on the CPU:
 
   - K1 ``rasterize_tiles_batch`` (``csrc/tile_composite.cu``): every tile
-    of every instance over a sorted pair table;
+    of every instance over a sorted pair table, each warp skipping the
+    pairs that cannot reach its 8x16 block (``block_cull_keep`` is that
+    test in PyTorch);
   - K7 ``rasterize_tiles_batch_t`` (``csrc/tile_composite.cu``): K1 with
     the final transmittance, the forward of the differentiable render;
   - K8 ``composite_backward`` (``csrc/tile_backward.cu``): the per-pair
@@ -40,6 +42,12 @@ ALPHA_MAX = 0.99
 T_EPS = 1e-4
 MEDIAN_DEPTH_DEFAULT = 15.0
 DEPTH_LANE = 9
+# K1's warp block (8 x 16 pixels) and its cull's margin, absolute and
+# relative to |a| dx^2 + 2 |b dx dy| + |c| dy^2 at the block's far corner
+# (derived in csrc/tile_blend.cuh)
+BLOCK_W = 16
+CULL_ABS = 1e-4
+CULL_REL = 1e-5
 
 
 def _check_table(name, t):
@@ -241,6 +249,48 @@ def composite_tiles_plain(pairs, tile_starts, tile_ends, n_tiles_x: int,
     if with_t:
         return rgb, to_image(D), to_image(T)
     return rgb, to_image(D)
+
+
+def block_cull_keep(attrs, bx0, by0):
+    """K1's block test in PyTorch (``block_keep`` of csrc/tile_blend.cuh,
+    the same operations in f32), for the tests and chip_smoke.py: False
+    only where the pair of ``attrs`` ((10, ...) f32 lanes [x, y, conic
+    a/b/c, opacity, ...]) adds nothing to any pixel of the 8x16 block whose
+    first pixel is (bx0, by0) (f32 tensors broadcast against attrs[0]):
+    the binning's exact conic cull on the block (``binning._exact_cull_keep``)
+    against 2 ln(255 op) + CULL_ABS + CULL_REL * |a| X^2 + 2 |b| X Y + |c|
+    Y^2, (X, Y) the block's far corner from the splat. A conic that is not
+    positive definite, a non-finite attribute or a negative opacity is
+    always kept."""
+    gx, gy, ca, cb, cc, op = (attrs[i] for i in range(6))
+    regular = ((ca >= 1e-20) & (cc >= 1e-20) & (ca * cc - cb * cb > 0.0)
+               & (op >= 0.0) & torch.isfinite(gx + gy + ca + cb + cc + op))
+    lx = bx0 - gx
+    ux = lx + float(BLOCK_W - 1)
+    ly = by0 - gy
+    uy = ly + float(TILE_H - 1)
+    ica, icc = 1.0 / ca, 1.0 / cc
+
+    def q(dx, dy):
+        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
+
+    def cl(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    zero = torch.zeros_like(lx)
+    q0 = q(cl(zero, lx, ux), cl(zero, ly, uy))
+    q1 = q(lx, cl(-cb * lx * icc, ly, uy))
+    q2 = q(ux, cl(-cb * ux * icc, ly, uy))
+    q3 = q(cl(-cb * ly * ica, lx, ux), ly)
+    q4 = q(cl(-cb * uy * ica, lx, ux), uy)
+    qmin = torch.minimum(torch.minimum(torch.minimum(q0, q1),
+                                       torch.minimum(q2, q3)), q4)
+    X = torch.maximum(lx.abs(), ux.abs())
+    Y = torch.maximum(ly.abs(), uy.abs())
+    mag = ca * X * X + 2.0 * cb.abs() * X * Y + cc * Y * Y
+    thr = (2.0 * torch.log(255.0 * torch.clamp(op, min=1e-12)) + CULL_ABS
+           + CULL_REL * mag)
+    return ~regular | ~(qmin > thr)
 
 
 # ---------------------------------------------------------------------------

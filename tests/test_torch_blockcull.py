@@ -1,0 +1,234 @@
+"""K1's block cull on the CPU: the test each warp of the tile compositor
+applies to its 8x16 block before it blends a pair (``block_keep`` in
+csrc/tile_blend.cuh; ``tile_kernel.block_cull_keep`` is the same test in
+PyTorch) may drop only pairs that change no pixel of the block, so K1's
+frames stay bitwise those of its plain version.
+
+Inputs are made with numpy from a seed; the small scene also goes through
+the JAX package's Pallas rasterizer in interpret mode, as its own tests
+run it.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from real2sim_eval_tpu.renderer import camera as jcam
+from real2sim_eval_tpu.renderer import raster as jraster
+from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+from real2sim_eval_tpu_torch.renderer.binning import bin_gaussians
+from real2sim_eval_tpu_torch.renderer.camera import Camera
+from real2sim_eval_tpu_torch.renderer.preprocess import preprocess_gaussians
+
+W, H = 256, 64
+N_TX, N_TY = W // tk.TILE_W, H // tk.TILE_H
+N_BLOCKS = tk.TILE_W // tk.BLOCK_W
+BG = (0.1, 0.2, 0.3)
+
+
+def scene(seed: int, n: int = 300):
+    """A random scene (numpy, seeded) as the render tests make one, with a
+    few large opaque splats so that some pixels saturate."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4))
+    scales = rng.uniform(0.01, 0.08, (n, 3))
+    scales[:20] = rng.uniform(0.08, 0.15, (20, 3))
+    opac = rng.uniform(0.1, 1.0, n)
+    opac[:20] = 1.0
+    return {
+        "means3D": np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.4, 0.4, n),
+                             rng.uniform(0.5, 3.0, n)], -1).astype(np.float32),
+        "scales": scales.astype(np.float32),
+        "rotations": (q / np.linalg.norm(q, axis=-1, keepdims=True)
+                      ).astype(np.float32),
+        "opacities": opac.astype(np.float32),
+        "shs": rng.uniform(-0.5, 0.5, (n, 1, 3)).astype(np.float32),
+    }
+
+
+KEYS = ("means3D", "scales", "rotations", "opacities", "shs")
+
+
+def wide_bins(sc):
+    """Two instances (two camera offsets) of the scene, preprocessed and
+    binned on 8x128 tiles as the render tests bin them."""
+    w2c = torch.eye(4).repeat(2, 1, 1)
+    w2c[1, 0, 3] = 0.12
+    cam = Camera(width=W, height=H, fx=80.0, fy=80.0, cx=W / 2, cy=H / 2)
+    pre = preprocess_gaussians(cam, w2c, *[
+        torch.as_tensor(sc[k])[None].expand((2,) + sc[k].shape) for k in KEYS],
+        0)
+    return bin_gaussians(pre, N_TX, N_TY, tk.TILE_W, tk.TILE_H), w2c
+
+
+def reaches(attrs, px, py):
+    """power <= 0 and alpha >= ALPHA_MIN, as ``_blend_tiles_plain`` computes
+    them, of the pairs ``attrs`` (10, ...) at pixels (px, py)."""
+    dx = attrs[0] - px
+    dy = attrs[1] - py
+    power = (-0.5 * (attrs[2] * dx * dx + attrs[4] * dy * dy)
+             - attrs[3] * dx * dy)
+    alpha = torch.minimum(torch.full_like(power, tk.ALPHA_MAX),
+                          attrs[5] * torch.exp(power))
+    return (power <= 0.0) & (alpha >= tk.ALPHA_MIN)
+
+
+def block_pixels(bx0: float, by0: float):
+    """(px, py), each (8, 16) f32, of the block whose first pixel is
+    (bx0, by0)."""
+    px = bx0 + torch.arange(tk.BLOCK_W, dtype=torch.float32)[None, :]
+    py = by0 + torch.arange(tk.TILE_H, dtype=torch.float32)[:, None]
+    return px.expand(tk.TILE_H, -1), py.expand(-1, tk.BLOCK_W)
+
+
+def blocks_of(bins):
+    """Per (instance, tile, block): the tile's pair indices, the block's
+    first pixel and its keep mask. Yields (g, w, idx, bx0, by0, keep)."""
+    starts = bins["tile_starts"].reshape(-1)
+    ends = bins["tile_ends"].reshape(-1)
+    pairs = bins["pair_attrs"]
+    for g in range(starts.shape[0]):
+        t = g % (N_TX * N_TY)
+        tx, ty = t % N_TX, t // N_TX
+        idx = torch.arange(int(starts[g]), int(ends[g]))
+        for w in range(N_BLOCKS):
+            bx0 = float(tx * tk.TILE_W + w * tk.BLOCK_W)
+            by0 = float(ty * tk.TILE_H)
+            keep = tk.block_cull_keep(pairs[:, idx], torch.tensor(bx0),
+                                      torch.tensor(by0))
+            yield g, w, idx, bx0, by0, keep
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dropped_pairs_reach_no_pixel(seed):
+    """Every (8x16 block, pair) of the small scene's wide pair table that
+    the cull drops has power > 0 or alpha < ALPHA_MIN at every pixel of
+    the block; the cull drops something."""
+    bins, _ = wide_bins(scene(seed))
+    pairs = bins["pair_attrs"]
+    dropped = tested = 0
+    for _, _, idx, bx0, by0, keep in blocks_of(bins):
+        tested += keep.numel()
+        if bool(keep.all()):
+            continue
+        gone = idx[~keep]
+        px, py = block_pixels(bx0, by0)
+        hit = reaches(pairs[:, gone][:, :, None, None], px, py)
+        assert not bool(hit.any()), (bx0, by0, gone[hit.flatten(1).any(1)])
+        dropped += gone.numel()
+    assert tested > 0 and 0 < dropped < tested
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_culled_blend_is_bitwise_plain(seed):
+    """The plain blend of each 8x16 block over its kept pairs only (the
+    walk of a K1 warp) is bitwise ``composite_tiles_plain`` of the whole
+    tiles, and within the render tests' tolerance of the JAX package's
+    Pallas rasterizer (interpret mode) on the same scene."""
+    sc = scene(seed)
+    bins, w2c = wide_bins(sc)
+    pairs = bins["pair_attrs"]
+    rows, b_starts, b_ends, off = [], [], [], 0
+    for _, _, idx, _, _, keep in blocks_of(bins):
+        rows.append(idx[keep])
+        b_starts.append(off)
+        off += int(keep.sum())
+        b_ends.append(off)
+    kept = pairs[:, torch.cat(rows)]
+    shape = (2, N_TY * N_TX * N_BLOCKS)
+    # blocks in tile order are the 8x16 grid's row-major order
+    rgb_b, dep_b = tk.composite_tiles_plain(
+        kept, torch.tensor(b_starts, dtype=torch.int32).reshape(shape),
+        torch.tensor(b_ends, dtype=torch.int32).reshape(shape),
+        N_TX * N_BLOCKS, N_TY, BG, tile_w=tk.BLOCK_W)
+    rgb_p, dep_p = tk.composite_tiles_plain(
+        pairs, bins["tile_starts"], bins["tile_ends"], N_TX, N_TY, BG)
+    assert kept.shape[1] < N_BLOCKS * pairs.shape[1]     # (block, pair)s
+    assert torch.equal(rgb_b, rgb_p) and torch.equal(dep_b, dep_p)
+
+    cam = jcam.Camera(width=W, height=H, fx=80.0, fy=80.0, cx=W / 2,
+                      cy=H / 2)
+    cfg = jraster.RasterConfig(backend="pallas", interpret=True,
+                               max_pairs_factor=16.0,
+                               max_tiles_per_gaussian=64, max_large=300,
+                               pack_payloads=False)
+    rgb_j, dep_j = jraster.rasterize_batch(
+        [(cam, jnp.asarray(w2c.numpy()))],
+        {k: jnp.asarray(np.broadcast_to(v, (2,) + v.shape)) for k, v in
+         sc.items()}, 0, bg=BG, config=cfg)
+    # the JAX rasterizer returns its frames clipped to [0, 1]
+    np.testing.assert_allclose(np.clip(rgb_b.numpy(), 0.0, 1.0),
+                               np.asarray(rgb_j)[0], atol=2e-3)
+    flips = int((np.abs(dep_b.numpy() - np.asarray(dep_j)[0]) > 1e-2).sum())
+    assert flips <= max(5, int(2e-4 * dep_b.numel()))
+
+
+def thin_conic(s_long: float, s_short: float, theta: float):
+    """f32 conic (a, b, c) of a 2D gaussian with standard deviations
+    (s_long, s_short) px rotated by theta, dilated by 0.3 px^2 as the
+    preprocess dilates."""
+    c, s = np.cos(theta), np.sin(theta)
+    R = np.array([[c, -s], [s, c]])
+    cov = R @ np.diag([s_long ** 2, s_short ** 2]) @ R.T + 0.3 * np.eye(2)
+    inv = np.linalg.inv(cov)
+    return np.float32(inv[0, 0]), np.float32(inv[0, 1]), np.float32(inv[1, 1])
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(s_long=st.floats(2.0, 60.0), s_short=st.floats(0.0, 1.0),
+       theta=st.floats(0.0, float(np.pi)),
+       op=st.one_of(st.floats(1.0 / 255.0, 1.0001 / 255.0),
+                    st.floats(1.0 / 255.0, 1.0)),
+       side=st.sampled_from(("left", "right", "top", "bottom")),
+       out=st.floats(0.0, 40.0), along=st.floats(-8.0, 24.0),
+       scale=st.sampled_from((1.0, 64.0, 4096.0)))
+def test_adversarial_splats(s_long, s_short, theta, op, side, out, along,
+                            scale):
+    """Thin, rotated splats of opacity just above 1/255, centred just
+    outside an edge of the block at (512, 256) (a frame offset, so the
+    pixel offsets round as far from the origin): wherever the cull drops
+    one, no pixel of the block passes power <= 0 and the alpha floor.
+    ``scale`` sharpens the conic as a far splat's would be."""
+    bx0, by0 = 512.0, 256.0
+    ca, cb, cc = (np.float32(v * scale) for v in thin_conic(
+        s_long, s_short, theta))
+    gx = {"left": bx0 - out, "right": bx0 + 15 + out}.get(side, bx0 + along)
+    gy = {"top": by0 - out, "bottom": by0 + 7 + out}.get(side, by0 + along)
+    attrs = torch.tensor([gx, gy, ca, cb, cc, op, 0.5, 0.5, 0.5, 1.0],
+                         dtype=torch.float32)
+    keep = tk.block_cull_keep(attrs, torch.tensor(bx0), torch.tensor(by0))
+    if not bool(keep):
+        px, py = block_pixels(bx0, by0)
+        assert not bool(reaches(attrs[:, None, None], px, py).any())
+
+
+def test_dense_random_splats():
+    """200,000 random splats around one block, thin and round, faint and
+    opaque: the cull drops only splats that reach no pixel, and drops
+    most of the far ones."""
+    rng = np.random.default_rng(3)
+    n = 200_000
+    cov_long = rng.uniform(0.0, 40.0, n) ** 2
+    cov_short = rng.uniform(0.0, 2.0, n) ** 2
+    th = rng.uniform(0.0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    a = c * c * cov_long + s * s * cov_short + 0.3
+    b = c * s * (cov_long - cov_short)
+    d = s * s * cov_long + c * c * cov_short + 0.3
+    det = a * d - b * b
+    bx0, by0 = 128.0, 64.0
+    op = np.where(rng.random(n) < 0.5, rng.uniform(1 / 255, 1.001 / 255, n),
+                  rng.uniform(1 / 255, 1.0, n))
+    attrs = torch.tensor(np.stack([
+        bx0 + rng.uniform(-60, 76, n), by0 + rng.uniform(-60, 68, n),
+        d / det, -b / det, a / det, op, np.zeros(n), np.zeros(n),
+        np.zeros(n), np.ones(n)]), dtype=torch.float32)
+    keep = tk.block_cull_keep(attrs, torch.tensor(bx0), torch.tensor(by0))
+    px, py = block_pixels(bx0, by0)
+    gone = attrs[:, ~keep]
+    hit = reaches(gone[:, :, None, None], px, py).flatten(1).any(1)
+    assert not bool(hit.any()), gone[:, hit][:, :5].T
+    assert int((~keep).sum()) > n // 2
