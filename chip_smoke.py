@@ -111,6 +111,10 @@ K3_GATES = {
     "grasp": {"x": 2e-4, "v": 5e-1, "com": 1e-5},
     # stretched loop in the air, its ends colliding: springs + phase B
     "loop": {"x": 1e-6, "v": 5e-4, "com": 1e-8},
+    # a box tool pushing down onto the rope with the pusher's 1 mm margin
+    # (measured on an H100: x 4.8e-7, v 6.9e-4 as the plain version's own
+    # f32-vs-f64 gap, CoM 3.1e-8)
+    "pusher": {"x": 5e-6, "v": 1e-2, "com": 5e-7},
 }
 # the loop's control step is cut to its first substeps: its ends' collision
 # is chaotic, and by 40 substeps rounding alone flips a hit in the plain
@@ -119,7 +123,13 @@ K3_LOOP_SUBSTEPS = 20
 # the broken kernels each case's gates must reject (k3_mutants)
 K3_MUST_CATCH = {"flagship": ("no_op", "no_springs"),
                  "grasp": ("no_op", "no_springs"),
-                 "loop": ("no_op", "no_springs", "no_self_collision")}
+                 "loop": ("no_op", "no_springs", "no_self_collision"),
+                 "pusher": ("no_op", "no_springs", "no_pusher")}
+# the drift test of K3's two-CTA cluster (check_k3_drift): control steps
+# cut to this many substeps, run with these delays (ns, one CTA of each
+# env against the other at every phase boundary)
+K3_DRIFT_SUBSTEPS = 8
+K3_DRIFT_NS = (0, 250, 2000, 16000)
 DEVICE = "cuda"
 
 
@@ -143,6 +153,12 @@ def sync():
     import torch
 
     torch.cuda.synchronize()
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
 
 
 def flips_limit(n_pixels: int) -> int:
@@ -622,9 +638,11 @@ def check_k8_small():
 
 
 def k3_mutants(opts, tab, state, plain) -> dict:
-    """Max |x| from the plain version of three broken kernels: one that
+    """Max |x| from the plain version of the broken kernels: one that
     returns its input, one without springs and dashpots, one without the
-    self-collision phase (each computed as the plain version would be)."""
+    self-collision phase, and under ``use_pusher`` one that ignores it
+    (the fingers' 5 mm margin on the tool), each computed as the plain
+    version would be."""
     import torch
 
     from real2sim_eval_tpu_torch.physics import spring_mass as sm
@@ -641,6 +659,9 @@ def k3_mutants(opts, tab, state, plain) -> dict:
             opts, dataclasses.replace(tab, sc_sel=None, sc_idx=None,
                                       sc_ok=None, sc_invm=None,
                                       sc_msel=None), state))
+    if opts.use_pusher:
+        out["no_pusher"] = gap(sm.run_substeps_plain(
+            dataclasses.replace(opts, use_pusher=False), tab, state))
     return out
 
 
@@ -668,16 +689,29 @@ def k3_rounding_gap(opts, tab, state, plain) -> dict:
             "v": float((plain.v - p64.v).abs().max())}
 
 
+def same_step(a, b) -> bool:
+    """Two K3 results bitwise equal (x, v and finger forces)."""
+    return all(torch_equal(getattr(a, k), getattr(b, k))
+               for k in ("x", "v", "finger_forces"))
+
+
 def check_k3(case: str, opts, tab, state, **extra) -> dict:
     """K3 against its plain version on one control step: the gaps, the
     work the case exercises, and the gaps of the broken kernels the gates
-    must reject. Fails on a gap over its gate or a mutant under it."""
+    must reject. Fails on a gap over its gate or a mutant under it. Both
+    launches of the kernel run (one CTA per env, the two-CTA cluster):
+    the main path's (``fused_step.K3_RANKS``) is gated, and whether the
+    other gives bitwise the same step is reported; the cluster may be the
+    main path only while it does (else this fails)."""
     import torch
 
     from real2sim_eval_tpu_torch.physics import fused_step
     from real2sim_eval_tpu_torch.physics import spring_mass as sm
 
-    kern = fused_step.spring_mass_step(opts, tab, state)
+    stages = {r: fused_step.spring_mass_step(opts, tab, state, ranks=r)
+              for r in (1, 2)}
+    kern = stages[fused_step.K3_RANKS]
+    cluster_same = same_step(stages[1], stages[2])
     plain = sm.run_substeps_plain(opts, tab, state)
     gates = K3_GATES[case]
     gaps = {"x": float((kern.x - plain.x).abs().max()),
@@ -703,53 +737,32 @@ def check_k3(case: str, opts, tab, state, **extra) -> dict:
            "telemetry": tab.telemetry.sum(0).tolist(),
            "finite": bool(torch.isfinite(kern.x).all()
                           and torch.isfinite(kern.v).all()),
-           "min_z": float(kern.x[..., 2].min()), **extra}
+           "min_z": float(kern.x[..., 2].min()),
+           "main_path_ranks": fused_step.K3_RANKS,
+           "cluster_bitwise_one_cta": cluster_same,
+           "cluster_max_abs_x": float(
+               (stages[2].x - stages[1].x).abs().max()), **extra}
     emit(out)
     over = [k for k in gates if gaps[k] > gates[k]]
     missed = [m for m in K3_MUST_CATCH[case] if mutants[m] <= gates["x"]]
     if over or missed or not out["finite"] or out["min_z"] < -0.01:
         fail(f"K3 {case}: gaps over their gates {over}, broken kernels "
              f"passing {missed}: {out}")
+    if fused_step.K3_RANKS == 2 and not cluster_same:
+        fail(f"K3 {case}: the cluster launch is not bitwise one CTA per env")
     return out
 
 
 def check_k3_grasp():
     """8 flagship ropes, each gripped mid-rope: the fingers straddle the
     rope, half closed (openness 0.4) and pressing into it, while the eef
-    moves down 2 mm. The finger-contact branch (relative surface velocity,
-    the second finger query, finger forces) runs on every substep; both
-    versions must see finger contact on the last substep in every env."""
-    import torch
-
-    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
-    from real2sim_eval_tpu_torch.physics import spring_mass as sm
-    from real2sim_eval_tpu_torch.testing import make_flagship_assets
-
-    B, openness = 8, 0.4
-    a = make_flagship_assets(batch=B, n_table=1000, n_obj_dense=0,
-                             device=DEVICE)
-    ev = BatchedEvaluator(a, list(range(B)), device=DEVICE,
-                          raster_config=render_off())
-    g = ev.state.grippers.clone()
-    # the finger pads reach 0.14 m below the eef: put their lower end 1 cm
-    # under a particle 3/8 along the rope
-    x = ev.state.sm.x
-    g[:, :3] = x[:, x.shape[1] * 3 // 8] + torch.tensor([0.0, 0.0, 0.13],
-                                                        device=DEVICE)
-    g[:, 13] = openness
-    grasp = ev.state.grasp
-    st = ev.state.replace(grippers=g, grasp=dataclasses.replace(
-        grasp,
-        current_openness=torch.full_like(grasp.current_openness, openness),
-        initialized=torch.ones_like(grasp.initialized)))
-    rot = torch.tensor(np.diag([1.0, -1.0, -1.0]).reshape(-1),
-                       dtype=torch.float32, device=DEVICE)
-    act = torch.cat([g[:, :3] - torch.tensor([0.0, 0.0, 0.002], device=DEVICE),
-                     rot.expand(B, 9), torch.full((B, 1), openness,
-                                                  device=DEVICE)], dim=1)
-    ctrl, _, _, colliders = ev._env_pre(st, act)
-    tab = sm.freeze(a.params, a.opts, colliders, st.sm, ctrl, st.rest_x)
-    out = check_k3("grasp", a.opts, tab, st.sm)
+    moves down 2 mm (k3_grasp_case). The finger-contact branch (relative
+    surface velocity, the second finger query, finger forces) runs on
+    every substep; both versions must see finger contact on the last
+    substep in every env."""
+    opts, tab, state = k3_grasp_case()
+    out = check_k3("grasp", opts, tab, state)
+    B = int(state.x.shape[0])
     if out["finger_force_envs"] != [B, B]:
         fail(f"K3 grasp: finger contact missing in some env: {out}")
 
@@ -812,6 +825,129 @@ def check_k3_loop():
     check_k3("loop", opts, tab, state, **extra)
 
 
+def k3_grasp_case(B: int = 8, openness: float = 0.4):
+    """The grasp check's control step: (opts, tables, state)."""
+    import torch
+
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+
+    a = make_flagship_assets(batch=B, n_table=1000, n_obj_dense=0,
+                             device=DEVICE)
+    ev = BatchedEvaluator(a, list(range(B)), device=DEVICE,
+                          raster_config=render_off())
+    g = ev.state.grippers.clone()
+    # the finger pads reach 0.14 m below the eef: put their lower end 1 cm
+    # under a particle 3/8 along the rope
+    x = ev.state.sm.x
+    g[:, :3] = x[:, x.shape[1] * 3 // 8] + torch.tensor([0.0, 0.0, 0.13],
+                                                        device=DEVICE)
+    g[:, 13] = openness
+    grasp = ev.state.grasp
+    st = ev.state.replace(grippers=g, grasp=dataclasses.replace(
+        grasp,
+        current_openness=torch.full_like(grasp.current_openness, openness),
+        initialized=torch.ones_like(grasp.initialized)))
+    rot = torch.tensor(np.diag([1.0, -1.0, -1.0]).reshape(-1),
+                       dtype=torch.float32, device=DEVICE)
+    act = torch.cat([g[:, :3] - torch.tensor([0.0, 0.0, 0.002], device=DEVICE),
+                     rot.expand(B, 9), torch.full((B, 1), openness,
+                                                  device=DEVICE)], dim=1)
+    ctrl, _, _, colliders = ev._env_pre(st, act)
+    return a.opts, sm.freeze(a.params, a.opts, colliders, st.sm, ctrl,
+                             st.rest_x), st.sm
+
+
+def k3_pusher_case(B: int = 8):
+    """8 flagship ropes under a pusher (tests/test_pallas_step.py:234 at
+    the flagship's widths): a 0.06 m box tool at 4 mm voxels as the one
+    finger collider with ``use_pusher`` (1 mm contact margin), its bottom
+    face 1.5 mm above a particle 3/8 along the rope, which starts at rest
+    in the air, and descending at 0.2 m/s, so it catches up with the
+    falling rope and presses into it during the step. Returns (opts,
+    tables, state)."""
+    import torch
+
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+    from real2sim_eval_tpu_torch.physics.sdf import build_sdf_grid
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+    from real2sim_eval_tpu_torch.utils.mesh import make_box
+
+    a = make_flagship_assets(batch=B, n_table=1000, n_obj_dense=0,
+                             device=DEVICE)
+    opts = dataclasses.replace(a.opts, use_pusher=True, n_fingers=1)
+    tool = build_sdf_grid(make_box((0.06, 0.06, 0.06)), voxel_size=0.004,
+                          device=DEVICE)
+    colliders = sm.MeshColliderSet(
+        fingers=(tool,),
+        finger_pose_table=torch.eye(4, device=DEVICE).expand(1, 101, 4, 4),
+        statics=(), static_pose=torch.zeros((B, 0, 4, 4), device=DEVICE))
+    x = a.state.sm.x
+    eef = x[:, x.shape[1] * 3 // 8] + torch.tensor([0.0, 0.0, 0.0315],
+                                                   device=DEVICE)
+    vel = torch.tensor([0.0, 0.0, -0.2], device=DEVICE).expand(B, 3)
+    ctrl = sm.SubstepControls(
+        eef_xyz=eef, eef_vel=vel,
+        eef_rot=torch.eye(3, device=DEVICE).expand(B, 3, 3),
+        eef_rot_vel=torch.zeros((B, 3), device=DEVICE),
+        openness_start=torch.ones(B, device=DEVICE),
+        openness_end=torch.ones(B, device=DEVICE),
+        dyn_lin_vel=vel[:, None].contiguous(),
+        dyn_omega=torch.zeros((B, 3), device=DEVICE))
+    state = dataclasses.replace(a.state.sm, v=torch.zeros_like(x),
+                                finger_forces=torch.zeros((B, 1, 3),
+                                                          device=DEVICE))
+    return opts, sm.freeze(a.params, opts, colliders, state, ctrl,
+                           a.state.rest_x), state
+
+
+def check_k3_pusher():
+    """K3 on k3_pusher_case; a kernel that ignored ``use_pusher`` lands
+    over the gates (the tool's margin changes the step)."""
+    check_k3("pusher", *k3_pusher_case())
+
+
+def check_k3_drift():
+    """The drift test of K3's two-CTA cluster: on the grasp, loop and
+    pusher cases (their control steps cut to K3_DRIFT_SUBSTEPS substeps),
+    the cluster launch with one CTA of each env delayed against the other
+    by varying multiples of each K3_DRIFT_NS at every phase boundary
+    (csrc/spring_mass_step.cu ``drift``) against the one-CTA launch,
+    bitwise. Each buffer one CTA reads from the other crosses: the x and
+    v mirrors (phase A), the v1 mirror (phase B, whose rows touch both
+    halves in the loop case), and the contact slots (grasp and pusher);
+    the kernel's ms shows that the delays ran. Fails only where the
+    cluster is the main path."""
+    from real2sim_eval_tpu_torch.physics import fused_step
+
+    S = K3_DRIFT_SUBSTEPS
+    cases = {"grasp": k3_grasp_case(), "pusher": k3_pusher_case(),
+             "loop": k3_loop_case(K3_LOOP_SUBSTEPS)[:3]}
+    res = {}
+    for case, (opts, tab, state) in cases.items():
+        opts = dataclasses.replace(opts, num_substeps=S)
+        if tab.pose is not None:
+            tab = dataclasses.replace(tab, pose=tab.pose[:, :S].contiguous())
+        one = fused_step.spring_mass_step(opts, tab, state, ranks=1)
+        res[case] = {}
+        for ns in K3_DRIFT_NS:
+            ms = time_cuda(lambda ns=ns: fused_step.spring_mass_step(
+                opts, tab, state, ranks=2, drift_ns=ns), 1)
+            two = fused_step.spring_mass_step(opts, tab, state, ranks=2,
+                                              drift_ns=ns)
+            res[case][str(ns)] = {
+                "bitwise": same_step(one, two), "ms": ms,
+                "max_abs_x": float((two.x - one.x).abs().max()),
+                "max_abs_v": float((two.v - one.v).abs().max())}
+    ok = all(r["bitwise"] for c in res.values() for r in c.values())
+    emit({"phase": "k3_drift", "substeps": S, "drift_ns": list(K3_DRIFT_NS),
+          "main_path_ranks": fused_step.K3_RANKS, "all_bitwise": ok,
+          "cases": res})
+    if fused_step.K3_RANKS == 2 and not ok:
+        fail("K3's cluster exchange fails the drift test")
+
+
 def check_reference():
     """The tile pipeline (K1, and K4 with ``kernel="fine"``) against the
     dense reference compositor gated at the same tiles, on a small random
@@ -846,21 +982,28 @@ def check_reference():
                  "reference")
 
 
-def gate_vs_plain(phase: str, out: dict, kern, plain, mutant) -> None:
+def gate_vs_plain(phase: str, out: dict, kern, plain, mutant,
+                  bitwise: bool = False) -> None:
     """Adds the max |rgb| and depth flips of a kernel's frames (rgb,
     depth) against its plain version's, and of a broken kernel's, to
-    ``out``; emits it; fails unless the kernel passes the gates and the
-    broken one does not."""
+    ``out``; emits it; fails unless the kernel passes the gates (with
+    ``bitwise``: equals its plain version exactly) and the broken one does
+    not."""
     limit = flips_limit(kern[1].numel())
     out.update({"max_abs_rgb": float((kern[0] - plain[0]).abs().max()),
                 "depth_flips": depth_flips(kern[1], plain[1]),
-                "rgb_tol": RGB_TOL, "flips_limit": limit,
+                "depth_pixels_differing": int((kern[1] != plain[1]).sum()),
+                "rgb_tol": 0.0 if bitwise else RGB_TOL,
+                "flips_limit": 0 if bitwise else limit,
                 "mutant_no_op": {
                     "max_abs_rgb": float((mutant[0] - plain[0]).abs().max()),
                     "depth_flips": depth_flips(mutant[1], plain[1])}})
     emit(out)
     if out["max_abs_rgb"] > RGB_TOL or out["depth_flips"] > limit:
         fail(f"{phase}: the kernel disagrees with its plain version")
+    if bitwise and not (torch_equal(kern[0], plain[0])
+                        and torch_equal(kern[1], plain[1])):
+        fail(f"{phase}: the kernel is not bitwise its plain version")
     mut = out["mutant_no_op"]
     if mut["max_abs_rgb"] <= RGB_TOL and mut["depth_flips"] <= limit:
         fail(f"{phase}: a no-op kernel would pass the gates")
@@ -870,8 +1013,9 @@ def check_k2_k6_small():
     """K2 and K6 against their plain versions on check_k1_small's 848x480
     scene split into static and dynamic splats (4 envs, both fixed
     cameras): the kernels' inputs are those of one incremental render.
-    A no-op mutant (the cached frames returned unchanged) must land over
-    the gates."""
+    K2 (K1's warp blocks and exact block cull) must be bitwise, K6 within
+    the compositor gates. A no-op mutant (the cached frames returned
+    unchanged) must land over the gates."""
     from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
     from real2sim_eval_tpu_torch.renderer import RasterConfig, incremental
     from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
@@ -898,7 +1042,8 @@ def check_k2_k6_small():
         gate_vs_plain(phase, {"phase": phase, "envs": B, "cameras": 2,
                               "dirty_tiles": int(args[at_inst].numel())},
                       getattr(tk, name)(*args), plain(*args),
-                      tk.copy_frames(args[-5], args[-4]))
+                      tk.copy_frames(args[-5], args[-4]),
+                      bitwise=phase == "k2_check")
 
 
 def check_k4_small():
@@ -1067,6 +1212,75 @@ def run_flagship():
         "flagship", ev, actions, TIMED_STEPS,
         ("spring_mass_step", "tile_sparse", "tile_composite"), setup_s)
     return ev, actions, launches, out
+
+
+def ik_sync_free(ev, actions):
+    """The flagship's two IK solves (the mimic's, toward the action pose,
+    and compose_dyn's, toward the current eef) under
+    ``torch.cuda.set_sync_debug_mode("error")``: fails if either
+    synchronises the host with the card. Then one ``step`` and ``render``
+    under "warn", each synchronising call counted by the innermost line of
+    the port (or of this script) that made it. The evaluator's state is
+    put back after that step, so the phases after this one see the state
+    sequence of the timed path alone."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from real2sim_eval_tpu_torch.utils import transforms as tf
+
+    st = ev.state
+    B = actions.shape[0]
+    targets = {"mimic": tf.make_se3(actions[:, 3:12].reshape(B, 3, 3),
+                                    actions[:, :3]),
+               "compose_dyn": tf.make_se3(tf.quat_to_rot(
+                   st.grippers[:, 6:10]), st.grippers[:, :3])}
+    for t in targets.values():                    # warm: allocations
+        ev._ik(st.qpos7, t)
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for name, t in targets.items():
+            try:
+                ev._ik(st.qpos7, t)
+            except RuntimeError as e:
+                fail(f"ik_sync_free: the {name} IK solve synchronises: {e}")
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ik_ms, _ = time_host(lambda: [ev._ik(st.qpos7, t)
+                                  for t in targets.values()])
+
+    sites: dict = {}
+    root = str(Path(__file__).resolve().parent)
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if f.filename.startswith(root)]
+        site = (f"{Path(frames[-1].filename).relative_to(root)}:"
+                f"{frames[-1].lineno} {frames[-1].name}" if frames
+                else f"{filename}:{lineno}")
+        sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ev.step(actions)
+            ev.render()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            ev.state = st
+    emit({"phase": "ik_sync_free", "ik_solves": list(targets),
+          "error_mode_ok": True, "ik_enqueue_ms": enqueue_ms,
+          "ik_ms": ik_ms, "step_render_syncs": sum(sites.values()),
+          "step_render_sync_sites": dict(sorted(
+              sites.items(), key=lambda kv: -kv[1]))})
 
 
 def run_flagship_stream(ev, actions):
@@ -1413,7 +1627,11 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     lib = ext.load()
 
     opts, tab, state = k3_seen["args"]
-    k3_ms = time_cuda(lambda: fused_step.spring_mass_step(opts, tab, state), 3)
+    # both launches, one CTA per env and the two-CTA cluster; the main
+    # path's is K3's time
+    k3_ranks_ms = {r: time_cuda(lambda r=r: fused_step.spring_mass_step(
+        opts, tab, state, ranks=r), 3) for r in (1, 2)}
+    k3_ms = k3_ranks_ms[fused_step.K3_RANKS]
     plain_ms, _ = time_host(lambda: sm.run_substeps_plain(opts, tab, state))
     k3_out = check_k3("flagship", opts, tab, state)
     k3_bound, k3_by = k3_bound_ms(opts, tab, state)
@@ -1461,7 +1679,8 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     rgb_k, dep_k = tk.rasterize_tiles_sparse(*args2)
     k2_plain_ms, (rgb_p, dep_p) = time_host(
         lambda: tk.composite_sparse_plain(*args2))
-    w2 = pixel_pair_walks(m_pairs, m_st, m_en, tile, ntx)
+    w2 = pixel_pair_walks(m_pairs, m_st, m_en, tile, ntx, blocks=True)
+    k2_depth_diff = int((dep_k != dep_p).sum())
     rows = int((m_en - m_st).sum())
     k2_bound, k2_by = sparse_bound_ms(rows, 4, int(inst.numel()),
                                       w2["reaching"])
@@ -1478,7 +1697,11 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
                              "dirty_tiles": int(inst.numel()),
                              "merged_pairs": rows,
                              "pixel_pair_blends": w2["walks"],
-                             "reaching_blends": w2["reaching"]}
+                             "reaching_blends": w2["reaching"],
+                             "evaluations": {
+                                 "tile_level": w2["tile_evals"],
+                                 "block_level": w2["block_evals"]},
+                             "depth_pixels_differing": k2_depth_diff}
 
     args6 = k6_seen["args"]
     data_s, data_d, inst, tile, ss, se, ds, de, rgb_c, dep_c = args6[:10]
@@ -1515,13 +1738,20 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
                                    "differing_pixels_vs_k2": k6_vs_k2}
     inputs["spring_mass_step"] = {
         "envs": int(state.x.shape[0]), "particles": int(state.x.shape[1]),
-        "neighbour_slots": int(tab.nbr_k.shape[1])}
+        "neighbour_slots": int(tab.nbr_k.shape[1]),
+        "spring_records": (int(tab.records.records.shape[0])
+                           if tab.records is not None else None),
+        "ms_by_ranks": {str(r): v for r, v in k3_ranks_ms.items()},
+        "main_path_ranks": fused_step.K3_RANKS}
     emit({"phase": "kernel_inputs", "depth_flips": flips,
           "flips_limits": limits, **inputs})
     kernels = [k3, k1, k2, k6]
     if k1["max_abs_err"] or k1_depth_diff:
         fail(f"K1 is not bitwise its plain version at the wrist's shapes: "
              f"{k1}, {k1_depth_diff} depth pixels differ")
+    if k2["max_abs_err"] or k2_depth_diff:
+        fail(f"K2 is not bitwise its plain version at the flagship's "
+             f"shapes: {k2}, {k2_depth_diff} depth pixels differ")
     for k in kernels[1:]:
         if (k["max_abs_err"] > RGB_TOL
                 or flips[k["name"]] > limits[k["name"]]):
@@ -1729,6 +1959,7 @@ def run_refinement():
                        attrs=("means", "scales", "rotations"),
                        iters=REFINE_GEOM_ITERS, lr=5e-3, log_every=1,
                        device=DEVICE)
+    gradient_determinism(start, ks, w2cs, images)
     iter_ms = float(sum(np.mean(v) for v in stats.values()))
     _, starts, ends = k7_seen["args"][:3]
     out = {"phase": "refinement", "gaussians": int(true["means3D"].shape[0]),
@@ -1756,6 +1987,51 @@ def run_refinement():
                       log_every=5, device=DEVICE)
 
     return launches, k7_seen["args"], k8_seen["args"], five, iter_ms
+
+
+def gradient_determinism(params: dict, ks, w2cs, images) -> None:
+    """The refinement's loss (refine's: the 8 views through one K7 launch,
+    clipped, mean squared error) and its backward on the same raw
+    parameters twice, every attribute trained: the per-gaussian gradients
+    (K8's per-pair gradients gathered back to the gaussians, then the
+    preprocess's autograd) must be bitwise equal."""
+    import torch
+
+    from real2sim_eval_tpu_torch.experiments.utils.refine_gs import (
+        clip01, sh_colors_to_coeffs)
+    from real2sim_eval_tpu_torch.renderer import Camera, diff
+
+    k = ks[0]
+    cam = Camera(width=int(images.shape[2]), height=int(images.shape[1]),
+                 fx=float(k[0, 0]), fy=float(k[1, 1]), cx=float(k[0, 2]),
+                 cy=float(k[1, 2]), z_threshold=0.05)
+    targets = torch.as_tensor(np.moveaxis(images, -1, 1), device=DEVICE)
+    w2c = torch.as_tensor(w2cs, device=DEVICE)
+    deg = int(round(np.sqrt(params["sh_colors"].shape[1] // 3))) - 1
+
+    def grads():
+        p = {key: torch.tensor(np.asarray(v, np.float32), device=DEVICE,
+                               requires_grad=True)
+             for key, v in params.items()}
+        rgb, _ = diff.rasterize_diff_views(
+            cam, w2c, p["means3D"], torch.exp(p["log_scales"]),
+            p["unnorm_rotations"],
+            torch.sigmoid(p["logit_opacities"]).reshape(-1),
+            sh_colors_to_coeffs(p["sh_colors"]), deg, device=DEVICE)
+        loss = torch.mean((clip01(rgb) - targets) ** 2)
+        ms, _ = time_host(loss.backward)
+        return {key: v.grad for key, v in p.items()}, ms
+
+    (a, ms_a), (b, ms_b) = grads(), grads()
+    res = {key: {"bitwise": torch_equal(a[key], b[key]),
+                 "max_abs_diff": float((a[key] - b[key]).abs().max()),
+                 "max_abs": float(a[key].abs().max())} for key in a}
+    out = {"phase": "gradient_determinism", "backward_ms": [ms_a, ms_b],
+           "all_bitwise": all(r["bitwise"] for r in res.values()),
+           "grads": res}
+    emit(out)
+    if not out["all_bitwise"]:
+        fail(f"per-gaussian gradients differ between two backwards: {res}")
 
 
 def measure_refine_kernels(launches, k7_args, k8_args):
@@ -1833,6 +2109,38 @@ def measure_refine_kernels(launches, k7_args, k8_args):
     return [k7, k8]
 
 
+def start_ptxas() -> dict:
+    """``nvcc -Xptxas -v`` on each kernel source the build compiles, one
+    process each, started together (seconds: the sources do not include
+    PyTorch's headers); objects go to the git-ignored build directory."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from real2sim_eval_tpu_torch import ext
+
+    ext.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
+    return {src: subprocess.Popen(
+        [nvcc, *ext.CUDA_FLAGS, "-Xptxas", "-v", "-I", str(ext.CSRC), "-c",
+         str(ext.CSRC / src), "-o", str(ext.BUILD_DIR / f"ptxas_{src}.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in ext.SOURCES if src.endswith(".cu")}
+
+
+def report_ptxas(procs: dict) -> None:
+    """Each kernel's registers, shared memory and spills, from
+    start_ptxas."""
+    from real2sim_eval_tpu_torch import ext
+
+    out = {}
+    for src, proc in procs.items():
+        text, _ = proc.communicate()
+        out[src] = [ln.split(":", 1)[-1].strip() for ln in text.splitlines()
+                    if "Used" in ln or "spill" in ln or "Compiling" in ln]
+        if proc.returncode:
+            fail(f"nvcc failed on {src}: {text[-2000:]}")
+    emit({"phase": "ptxas", "flags": list(ext.CUDA_FLAGS), "sources": out})
+
+
 def main() -> int:
     import torch
 
@@ -1851,9 +2159,11 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
+    ptxas = start_ptxas()
     ext.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "flags": list(ext.CUDA_FLAGS), "sources": list(ext.SOURCES)})
+    report_ptxas(ptxas)
 
     check_k1_small()
     check_k7_small()
@@ -1861,11 +2171,14 @@ def main() -> int:
     check_k2_k6_small()
     check_k4_small()
     check_k5_small()
+    check_k3_drift()
     check_k3_grasp()
     check_k3_loop()
+    check_k3_pusher()
     check_reference()
     # every host-timed phase first, the device profiles last
     ev, actions, launches, flagship = run_flagship()
+    ik_sync_free(ev, actions)
     ev_s, launches_s = run_flagship_stream(ev, actions)
     ev_f, launches_f, flagship_f = run_flagship_fine(ev, actions)
     render_parity(ev, ev_s)

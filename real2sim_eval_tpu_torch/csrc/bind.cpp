@@ -8,6 +8,7 @@
 #include <torch/extension.h>
 
 #include <algorithm>
+#include <cstdint>
 #include <initializer_list>
 #include <utility>
 
@@ -214,21 +215,19 @@ void fine_sparse(torch::Tensor pairs, torch::Tensor inst_ids,
 
 void spring_mass_step(
     torch::Tensor x, torch::Tensor v, torch::Tensor masses,
-    torch::Tensor nbr_idx, torch::Tensor nbr_rest, torch::Tensor nbr_k,
-    torch::Tensor nbr_c, torch::Tensor scal, torch::Tensor sc_sel,
+    torch::Tensor row_ptr, torch::Tensor records, torch::Tensor scal,
+    torch::Tensor sc_sel,
     torch::Tensor sc_idx, torch::Tensor sc_ok, torch::Tensor sc_invm,
     torch::Tensor sc_msel, torch::Tensor c_inv, torch::Tensor c_ok,
     torch::Tensor pose, torch::Tensor dyn_lin, torch::Tensor dyn_omega,
     torch::Tensor corners, torch::Tensor g_origin, torch::Tensor g_isp,
     torch::Tensor g_dims, torch::Tensor g_off, int64_t n_f, int64_t S,
     double dt, double gz, double rev, double ground, double cdist,
-    bool use_pusher, torch::Tensor x_out, torch::Tensor v_out,
-    torch::Tensor ff_out) {
+    bool use_pusher, int64_t ranks, int64_t drift_ns, torch::Tensor x_out,
+    torch::Tensor v_out, torch::Tensor ff_out) {
   for (const auto& p : {std::make_pair(&x, "x"), std::make_pair(&v, "v"),
                   std::make_pair(&masses, "masses"),
-                  std::make_pair(&nbr_rest, "nbr_rest"),
-                  std::make_pair(&nbr_k, "nbr_k"),
-                  std::make_pair(&nbr_c, "nbr_c"),
+                  std::make_pair(&records, "records"),
                   std::make_pair(&scal, "scal"),
                   std::make_pair(&sc_invm, "sc_invm"),
                   std::make_pair(&sc_msel, "sc_msel"),
@@ -242,7 +241,7 @@ void spring_mass_step(
                   std::make_pair(&v_out, "v_out"),
                   std::make_pair(&ff_out, "ff_out")})
     check(*p.first, p.second, at::kFloat);
-  for (const auto& p : {std::make_pair(&nbr_idx, "nbr_idx"),
+  for (const auto& p : {std::make_pair(&row_ptr, "row_ptr"),
                   std::make_pair(&sc_sel, "sc_sel"),
                   std::make_pair(&sc_idx, "sc_idx"),
                   std::make_pair(&sc_ok, "sc_ok"),
@@ -258,11 +257,16 @@ void spring_mass_step(
   for (const auto* t : {&v, &x_out, &v_out})
     TORCH_CHECK(t->sizes() == x.sizes(), "v, x_out and v_out must match x");
   TORCH_CHECK(masses.dim() == 1 && masses.size(0) == N, "masses must be (N)");
-  TORCH_CHECK(nbr_idx.dim() == 2 && nbr_idx.size(1) == N,
-              "nbr_idx must be (D, N)");
-  for (const auto* t : {&nbr_rest, &nbr_k, &nbr_c})
-    TORCH_CHECK(t->sizes() == nbr_idx.sizes(),
-                "nbr_rest, nbr_k and nbr_c must match nbr_idx (D, N)");
+  TORCH_CHECK(row_ptr.dim() == 1 && row_ptr.size(0) == N + 1,
+              "row_ptr must be (N + 1)");
+  TORCH_CHECK(records.dim() == 2 && records.size(1) == 4,
+              "records must be (R, 4)");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(records.data_ptr<float>()) % 16 ==
+                  0,
+              "records must be 16-byte aligned");
+  TORCH_CHECK(ranks == 1 || ranks == 2, "ranks must be 1 or 2");
+  TORCH_CHECK(drift_ns >= 0 && drift_ns <= 100000,
+              "drift_ns must lie in [0, 100000]");
   TORCH_CHECK(scal.dim() == 1 && scal.size(0) == 8, "scal must be (8)");
   TORCH_CHECK(sc_sel.dim() == 2 && sc_sel.size(0) == B &&
                   sc_sel.size(1) <= N,
@@ -304,7 +308,7 @@ void spring_mass_step(
   SpringStepArgs a;
   a.B = (int)B;
   a.N = (int)N;
-  a.D = (int)nbr_idx.size(0);
+  a.R = (int)records.size(0);
   a.M = (int)M;
   a.Ks = (int)sc_idx.size(2);
   a.PM = (int)c_ok.size(1);
@@ -318,13 +322,13 @@ void spring_mass_step(
   a.ground = (float)ground;
   a.cdist = (float)cdist;
   a.use_pusher = use_pusher ? 1 : 0;
+  a.ranks = (int)ranks;
+  a.drift_ns = (int)drift_ns;
   a.x = x.data_ptr<float>();
   a.v = v.data_ptr<float>();
   a.masses = masses.data_ptr<float>();
-  a.nbr_idx = nbr_idx.data_ptr<int>();
-  a.nbr_rest = nbr_rest.data_ptr<float>();
-  a.nbr_k = nbr_k.data_ptr<float>();
-  a.nbr_c = nbr_c.data_ptr<float>();
+  a.row_ptr = row_ptr.data_ptr<int>();
+  a.records = reinterpret_cast<const float4*>(records.data_ptr<float>());
   a.scal = scal.data_ptr<float>();
   a.sc_sel = sc_sel.data_ptr<int>();
   a.sc_idx = sc_idx.data_ptr<int>();
@@ -371,6 +375,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Dirty fine-tile compositor over a merged pair table, in place "
         "(CUDA)");
   m.def("spring_mass_step", &spring_mass_step,
-        "All substeps of one spring-mass control step, one CTA per env "
-        "(CUDA)");
+        "All substeps of one spring-mass control step, one CTA per env or "
+        "a cluster of two (CUDA)");
 }

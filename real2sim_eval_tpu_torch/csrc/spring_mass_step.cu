@@ -5,18 +5,44 @@
 // the JAX package's physics/spring_mass.py make_step_fn computes, batched
 // over envs.
 //
-// Design: one CTA per env. Positions, velocities and the post-force
-// velocity live in shared memory as structure-of-arrays (9 N floats, 36 KB
-// at N = 1000) for all S substeps; each substep is four phases separated by
-// __syncthreads():
-//   A. spring + dashpot forces through the neighbour table (a CTA-local
-//      gather from shared memory), gravity, drag -> v1;
+// Design. Positions and velocities live in shared memory as
+// structure-of-arrays for all S substeps, in two copies: substep s reads
+// copy s % 2 and writes copy (s + 1) % 2. Each substep is four phases
+// separated by barriers:
+//   A. spring + dashpot forces, gravity, drag -> v1. Each particle walks
+//      its compacted spring records (physics/fused_step.py
+//      spring_records): only the neighbour slots whose stiffness or
+//      damping is nonzero, one 16-byte record {j, k, c, rest} each, in
+//      ascending slot order, so every particle's operations and their
+//      order are those of the dense table with its inactive slots skipped.
+//      A record is one __ldg, and the next kPrefetch records load while
+//      the current ones are used, so an L2 read's latency is not exposed
+//      behind a branch on the slot's activity; the neighbours' x and v are
+//      CTA-local gathers from shared memory;
 //   B. self-collision impulses over the frozen (M x Ks) candidate slots,
 //      which read other particles' v1 (computed, barrier, then written);
 //   C. SDF contact for the frozen candidate particles against C colliders,
 //      sampling each collider's full grid trilinearly from global memory;
 //   D. ground response and integration (the reference's double advance
-//      when colliders exist), written back in place.
+//      when colliders exist).
+// Every thread owns one particle (and the particle 1024 further on, and
+// so on, above 1024 particles) in A, C and D. Two launches compute
+// bitwise the same step:
+//   ranks 2 (the main path): a cluster of two CTAs of 1024 threads per
+//      env, so 64 envs fill 128 of the 132 SMs. Each CTA owns half the
+//      particles and keeps a full mirror of x, v and v1. After phase A it
+//      stores its half's v1 into the other CTA's mirror (distributed
+//      shared memory), and in phase D its half's new x and v into the
+//      other CTA's next copy; a cluster barrier (release/acquire) follows
+//      each. Both CTAs compute every self-collision row (the same inputs
+//      give the same rows), so phase B exchanges nothing, and the contact
+//      slots of the last substep are stored into both CTAs. The two
+//      copies of x and v make the exchange safe: the other CTA may still
+//      read this substep's copy in phase B while this one writes the next.
+//      drift_ns > 0 delays one CTA of each pair by varying amounts at
+//      every phase boundary (the drift test, chip_smoke.py check_k3_drift),
+//      which must leave the result bitwise that of ranks 1;
+//   ranks 1: one CTA of 1024 threads per env, the drift test's reference.
 // The per-control-step freezes (candidate slots, contact candidates, the
 // per-substep collider poses) are computed by PyTorch outside the kernel,
 // as XLA computes them outside the Pallas kernel. The TPU kernel's SDF
@@ -24,22 +50,28 @@
 // Mosaic has no general gather; here gathers are native, so none of them is
 // carried and the patch-escape telemetry is 0 by construction.
 //
-// Bound: the neighbour tables (16 B per slot, shared by all envs) are read
-// from L2 every substep and the spring loop is ~25 f32 operations per
-// slot; with one CTA per env the launch fills B of the card's SMs, so at
-// B = 64 it is latency-bound with half the SMs idle. Numerics: no fast math,
-// no contracted multiply-adds (--fmad=false), every formula in the order
-// of spring_mass.py.
+// Bound: ~30 f32 operations (four IEEE divisions and a square root among
+// them) per active spring slot and substep; the records (16 B per active
+// slot, shared by all envs) stay in L2. Phase A is most of a substep, and
+// each thread's walk of its ~31 records is bound by its chain of
+// dependent operations, not by the SM's instruction rate (PERF.md).
+// Shared memory: 15 N + 3 M + 4 PM words, so N up
+// to ~3,700 particles. Numerics: no fast math, no contracted multiply-adds
+// (--fmad=false), every formula in the order of spring_mass.py.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "spring_mass_step.h"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 1024;
 constexpr int kMaxColliders = 8;
 constexpr int kPoseRow = 24;
+constexpr int kPrefetch = 2;
 
 struct Colliders {
   float origin[kMaxColliders][3];
@@ -108,21 +140,95 @@ __device__ float query_world(const Colliders& g,
   return d;
 }
 
-__global__ void __launch_bounds__(kThreads)
-spring_mass_step_kernel(const SpringStepArgs a) {
+// Spring + dashpot force of one particle at (xi, vi) over its records
+// [beg, end), in order: the records of the next kPrefetch slots are loaded
+// before the current ones are used.
+__device__ __forceinline__ void spring_force(
+    const float4* __restrict__ rec, int beg, int end, const float* xs,
+    const float* vs, int N, float xi0, float xi1, float xi2, float vi0,
+    float vi1, float vi2, float& f0, float& f1, float& f2) {
+  float4 cur[kPrefetch], nxt[kPrefetch];
+#pragma unroll
+  for (int u = 0; u < kPrefetch; ++u) {
+    cur[u] = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+    nxt[u] = cur[u];
+    if (beg + u < end) cur[u] = __ldg(rec + beg + u);
+  }
+  for (int r = beg; r < end; r += kPrefetch) {
+#pragma unroll
+    for (int u = 0; u < kPrefetch; ++u)
+      if (r + kPrefetch + u < end) nxt[u] = __ldg(rec + r + kPrefetch + u);
+#pragma unroll
+    for (int u = 0; u < kPrefetch; ++u) {
+      if (r + u < end) {
+        const int j = __float_as_int(cur[u].x);
+        const float kk = cur[u].y, cc = cur[u].z, rest = cur[u].w;
+        const float dx = xs[j] - xi0, dy = xs[N + j] - xi1,
+                    dz = xs[2 * N + j] - xi2;
+        const float len = sqrtf(dx * dx + dy * dy + dz * dz);
+        const float m = fmaxf(len, 1e-6f);
+        const float ux = dx / m, uy = dy / m, uz = dz / m;
+        const float smag = kk * (len / rest - 1.0f);
+        const float vrel = (vs[j] - vi0) * ux + (vs[N + j] - vi1) * uy +
+                           (vs[2 * N + j] - vi2) * uz;
+        const float cmag = cc * vrel;
+        f0 = f0 + (smag * ux + cmag * ux);
+        f1 = f1 + (smag * uy + cmag * uy);
+        f2 = f2 + (smag * uz + cmag * uz);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPrefetch; ++u) cur[u] = nxt[u];
+  }
+}
+
+// All threads of the env's CTA (ranks 1) or cluster (ranks 2); the cluster
+// barrier releases this CTA's stores into the other CTA's shared memory
+// and acquires the other's.
+template <int R>
+__device__ __forceinline__ void env_barrier() {
+  if constexpr (R == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();
+  }
+}
+
+// The drift test's delay at phase boundary ph of substep s: the CTA of
+// rank (s + ph) % 2 sleeps, each warp a different multiple of drift_ns.
+__device__ __forceinline__ void drift(const SpringStepArgs& a, int rank,
+                                      int s, int ph) {
+  if (a.drift_ns <= 0 || ((s + ph) & 1) != rank) return;
+  const unsigned k = (unsigned)(3 * s + 5 * ph + (threadIdx.x >> 5)) % 8u;
+  __nanosleep((unsigned)a.drift_ns * k);
+}
+
+template <int R>
+__device__ __forceinline__ void step_body(const SpringStepArgs& a) {
   extern __shared__ float smem[];
   __shared__ Colliders g;
   __shared__ float srow[kMaxColliders * kPoseRow];
 
   const int N = a.N, M = a.M, PM = a.PM, C = a.C, Ks = a.Ks;
-  const int b = blockIdx.x;
+  int rank = 0;
+  float* peer = nullptr;        // smem of the other CTA of the cluster
+  if constexpr (R == 2) {
+    cg::cluster_group cl = cg::this_cluster();
+    rank = (int)cl.block_rank();
+    peer = cl.map_shared_rank(smem, rank ^ 1);
+  }
+  const int b = blockIdx.x / R;
   const int tid = threadIdx.x;
-  float* sx = smem;              // [3][N] positions
-  float* sv = sx + 3 * N;        // [3][N] velocities
-  float* svn = sv + 3 * N;       // [3][N] post-force velocity v1
-  float* svb = svn + 3 * N;      // [3][M] self-collision results
-  float* sfc = svb + 3 * M;      // [3][PM] last-substep contact forces
-  int* sfi = (int*)(sfc + 3 * PM);  // [PM] finger of each contact slot
+  const int own = (N + R - 1) / R;
+  const int lo = rank * own, hi = min(N, lo + own);   // this CTA's particles
+  // smem: [2][x (3, N) | v (3, N)], v1 (3, N), self-collision rows (3, M),
+  // last-substep contact forces (3, PM) and fingers (PM), as in the peer
+  const int o_svn = 12 * N, o_svb = o_svn + 3 * N, o_sfc = o_svb + 3 * M,
+            o_sfi = o_sfc + 3 * PM;
+  float* svn = smem + o_svn;
+  float* svb = smem + o_svb;
+  float* sfc = smem + o_sfc;
+  int* sfi = (int*)(smem + o_sfi);
 
   const float elas_g = a.scal[0], fric_g = a.scal[1];
   const float elas_e = a.scal[2], fric_e = a.scal[3];
@@ -140,11 +246,13 @@ spring_mass_step_kernel(const SpringStepArgs a) {
   }
   for (int i = tid; i < N; i += kThreads) {
     for (int k = 0; k < 3; ++k) {
-      sx[k * N + i] = a.x[((long long)b * N + i) * 3 + k];
-      sv[k * N + i] = a.v[((long long)b * N + i) * 3 + k];
+      smem[k * N + i] = a.x[((long long)b * N + i) * 3 + k];
+      smem[3 * N + k * N + i] = a.v[((long long)b * N + i) * 3 + k];
     }
   }
-  __syncthreads();
+  // ranks 2: also guarantees the peer runs before anything is stored into
+  // its shared memory
+  env_barrier<R>();
 
   const float om0 = C ? a.dyn_omega[b * 3 + 0] : 0.0f;
   const float om1 = C ? a.dyn_omega[b * 3 + 1] : 0.0f;
@@ -152,43 +260,41 @@ spring_mass_step_kernel(const SpringStepArgs a) {
   const int F_lin = a.n_f > 0 ? a.n_f : 1;
 
   for (int s = 0; s < a.S; ++s) {
+    const int o_cur = (s & 1) * 6 * N;          // this substep's x, v
+    const int o_nxt = ((s + 1) & 1) * 6 * N;    // the next one's
+    const float* sx = smem + o_cur;
+    const float* sv = sx + 3 * N;
     // this substep's collider poses, consumed after the phase-A barrier
     for (int k = tid; k < C * kPoseRow; k += kThreads)
       srow[k] = a.pose[((long long)b * a.S + s) * C * kPoseRow + k];
 
     // ---- A: springs + dashpots, gravity, drag (velocity_update) --------
-    for (int i = tid; i < N; i += kThreads) {
+    for (int i = lo + tid; i < hi; i += kThreads) {
       const float xi0 = sx[i], xi1 = sx[N + i], xi2 = sx[2 * N + i];
       const float vi0 = sv[i], vi1 = sv[N + i], vi2 = sv[2 * N + i];
       float f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-      for (int d = 0; d < a.D; ++d) {
-        const float kk = __ldg(a.nbr_k + d * N + i);
-        const float cc = __ldg(a.nbr_c + d * N + i);
-        if (kk == 0.0f && cc == 0.0f) continue;   // inactive slot adds 0
-        const int j = __ldg(a.nbr_idx + d * N + i);
-        const float rest = __ldg(a.nbr_rest + d * N + i);
-        const float dx = sx[j] - xi0, dy = sx[N + j] - xi1,
-                    dz = sx[2 * N + j] - xi2;
-        const float len = sqrtf(dx * dx + dy * dy + dz * dz);
-        const float m = fmaxf(len, 1e-6f);
-        const float ux = dx / m, uy = dy / m, uz = dz / m;
-        const float smag = kk * (len / rest - 1.0f);
-        const float vrel = (sv[j] - vi0) * ux + (sv[N + j] - vi1) * uy +
-                           (sv[2 * N + j] - vi2) * uz;
-        const float cmag = cc * vrel;
-        f0 = f0 + (smag * ux + cmag * ux);
-        f1 = f1 + (smag * uy + cmag * uy);
-        f2 = f2 + (smag * uz + cmag * uz);
-      }
+      spring_force(a.records, a.row_ptr[i], a.row_ptr[i + 1], sx, sv, N, xi0,
+                   xi1, xi2, vi0, vi1, vi2, f0, f1, f2);
       const float mi = a.masses[i];
       const float a0 = f0 / mi, a1 = f1 / mi, a2 = (f2 + mi * a.gz) / mi;
-      svn[i] = (vi0 + a0 * dt) * decay;
-      svn[N + i] = (vi1 + a1 * dt) * decay;
-      svn[2 * N + i] = (vi2 + a2 * dt) * decay;
+      const float o0 = (vi0 + a0 * dt) * decay;
+      const float o1 = (vi1 + a1 * dt) * decay;
+      const float o2 = (vi2 + a2 * dt) * decay;
+      svn[i] = o0;
+      svn[N + i] = o1;
+      svn[2 * N + i] = o2;
+      if constexpr (R == 2) {
+        float* q = peer + o_svn;
+        q[i] = o0;
+        q[N + i] = o1;
+        q[2 * N + i] = o2;
+      }
     }
-    __syncthreads();
+    drift(a, rank, s, 0);
+    env_barrier<R>();
+    drift(a, rank, s, 1);
 
-    // ---- B: self-collision over the frozen slots -----------------------
+    // ---- B: self-collision over the frozen slots (every row) -----------
     if (M > 0) {
       for (int j = tid; j < M; j += kThreads) {
         const long long base = (long long)b * M + j;
@@ -243,10 +349,11 @@ spring_mass_step_kernel(const SpringStepArgs a) {
       }
       __syncthreads();
     }
+    drift(a, rank, s, 2);
 
     // ---- C + D: contact for candidates, ground, integrate (own particle)
     const bool last = s == a.S - 1;
-    for (int i = tid; i < N; i += kThreads) {
+    for (int i = lo + tid; i < hi; i += kThreads) {
       float x[3] = {sx[i], sx[N + i], sx[2 * N + i]};
       float v[3] = {svn[i], svn[N + i], svn[2 * N + i]};
       if (C > 0) {
@@ -254,6 +361,8 @@ spring_mass_step_kernel(const SpringStepArgs a) {
                              x[2] + v[2] * dt};
         const int j = a.c_inv[(long long)b * N + i];
         const bool ok = j >= 0 && a.c_ok[(long long)b * PM + j];
+        float fc[3] = {0.0f, 0.0f, 0.0f};
+        int fi = 0;
         if (ok) {
           float dist = 0.0f, nrm[3] = {0.0f, 0.0f, 0.0f};
           int best = 0;
@@ -318,22 +427,24 @@ spring_mass_step_kernel(const SpringStepArgs a) {
               for (int k = 0; k < 3; ++k) xo[k] = nx[k] - nrm[k] * err;
             }
           }
-          if (last) {
-            const bool dyn_hit = contact && is_dyn;
-            for (int k = 0; k < 3; ++k)
-              sfc[k * PM + j] = dyn_hit ? (vnn[k] - vnv[k]) / dt : 0.0f;
-            sfi[j] = finger;
+          if (last && contact && is_dyn) {
+            for (int k = 0; k < 3; ++k) fc[k] = (vnn[k] - vnv[k]) / dt;
           }
+          fi = finger;
           for (int k = 0; k < 3; ++k) {
             x[k] = xo[k];
             v[k] = vnew[k];
           }
         } else {
-          if (last && j >= 0) {
-            for (int k = 0; k < 3; ++k) sfc[k * PM + j] = 0.0f;
-            sfi[j] = 0;
-          }
           for (int k = 0; k < 3; ++k) x[k] = nx[k];
+        }
+        if (last && j >= 0) {
+          for (int k = 0; k < 3; ++k) sfc[k * PM + j] = fc[k];
+          sfi[j] = fi;
+          if constexpr (R == 2) {
+            for (int k = 0; k < 3; ++k) peer[o_sfc + k * PM + j] = fc[k];
+            ((int*)(peer + o_sfi))[j] = fi;
+          }
         }
       }
       // ground response with time-of-impact integration
@@ -356,44 +467,66 @@ spring_mass_step_kernel(const SpringStepArgs a) {
         toi = -(x[2] - a.ground) / v[2];
       }
       for (int k = 0; k < 3; ++k) {
-        sx[k * N + i] = x[k] + v[k] * toi + vo[k] * (dt - toi);
-        sv[k * N + i] = vo[k];
+        const float xn = x[k] + v[k] * toi + vo[k] * (dt - toi);
+        smem[o_nxt + k * N + i] = xn;
+        smem[o_nxt + 3 * N + k * N + i] = vo[k];
+        if constexpr (R == 2) {
+          peer[o_nxt + k * N + i] = xn;
+          peer[o_nxt + 3 * N + k * N + i] = vo[k];
+        }
       }
     }
-    __syncthreads();
+    drift(a, rank, s, 3);
+    env_barrier<R>();
   }
 
   // last-substep finger forces, summed over contact slots in slot order
-  for (int q = tid; q < a.F * 3; q += kThreads) {
-    const int f = q / 3, k = q % 3;
-    float acc = 0.0f;
-    if (f < a.n_f) {
-      for (int j = 0; j < PM; ++j)
-        if (a.c_ok[(long long)b * PM + j] && sfi[j] == f) acc += sfc[k * PM + j];
+  if (rank == 0) {
+    for (int q = tid; q < a.F * 3; q += kThreads) {
+      const int f = q / 3, k = q % 3;
+      float acc = 0.0f;
+      if (f < a.n_f) {
+        for (int j = 0; j < PM; ++j)
+          if (a.c_ok[(long long)b * PM + j] && sfi[j] == f)
+            acc += sfc[k * PM + j];
+      }
+      a.ff_out[((long long)b * a.F + f) * 3 + k] = acc;
     }
-    a.ff_out[((long long)b * a.F + f) * 3 + k] = acc;
   }
-  for (int i = tid; i < N; i += kThreads) {
+  const float* xf = smem + (a.S & 1) * 6 * N;
+  for (int i = lo + tid; i < hi; i += kThreads) {
     for (int k = 0; k < 3; ++k) {
-      a.x_out[((long long)b * N + i) * 3 + k] = sx[k * N + i];
-      a.v_out[((long long)b * N + i) * 3 + k] = sv[k * N + i];
+      a.x_out[((long long)b * N + i) * 3 + k] = xf[k * N + i];
+      a.v_out[((long long)b * N + i) * 3 + k] = xf[3 * N + k * N + i];
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+spring_mass_step_kernel(const SpringStepArgs a) {
+  step_body<1>(a);
+}
+
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+spring_mass_step_cluster_kernel(const SpringStepArgs a) {
+  step_body<2>(a);
 }
 
 }  // namespace
 
 extern "C" cudaError_t spring_mass_step_launch(const SpringStepArgs* a,
                                                cudaStream_t stream) {
-  if (a->C > kMaxColliders) return cudaErrorInvalidValue;
+  if (a->C > kMaxColliders || (a->ranks != 1 && a->ranks != 2))
+    return cudaErrorInvalidValue;
   if (a->B == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * (9 * (size_t)a->N + 3 * (size_t)a->M +
+  const size_t smem = sizeof(float) * (15 * (size_t)a->N + 3 * (size_t)a->M +
                                        3 * (size_t)a->PM) +
                       sizeof(int) * (size_t)a->PM;
+  const auto kernel = a->ranks == 1 ? spring_mass_step_kernel
+                                    : spring_mass_step_cluster_kernel;
   cudaError_t e = cudaFuncSetAttribute(
-      spring_mass_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  spring_mass_step_kernel<<<a->B, kThreads, smem, stream>>>(*a);
+  kernel<<<a->B * a->ranks, kThreads, smem, stream>>>(*a);
   return cudaGetLastError();
 }

@@ -7,20 +7,20 @@
 extern "C" {
 #endif
 
-// All tensors contiguous on one device. Shapes: B envs, N particles, D
-// neighbour slots, M self-collision particles x Ks slots, PM contact
+// All tensors contiguous on one device. Shapes: B envs, N particles, R
+// spring records, M self-collision particles x Ks slots, PM contact
 // candidates, C colliders (fingers first), S substeps.
 struct SpringStepArgs {
-  int B, N, D, M, Ks, PM, C, n_f, F, S;
+  int B, N, R, M, Ks, PM, C, n_f, F, S;
   float dt, gz, rev, ground, cdist;
   int use_pusher;
+  int ranks;               // CTAs per env: 1, or 2 in a thread-block cluster
+  int drift_ns;            // > 0: the drift test's delays (see the source)
   const float* x;          // (B, N, 3)
   const float* v;          // (B, N, 3)
   const float* masses;     // (N,)
-  const int* nbr_idx;      // (D, N) neighbour ids (padding: own id)
-  const float* nbr_rest;   // (D, N) rest lengths (padding: 1)
-  const float* nbr_k;      // (D, N) clipped stiffness, 0 when inactive
-  const float* nbr_c;      // (D, N) dashpot damping, 0 when inactive
+  const int* row_ptr;      // (N + 1,) particle i's records [row_ptr[i], row_ptr[i + 1])
+  const float4* records;   // (R,) {j (int bits), stiffness, damping, rest}
   const float* scal;       // (8,) elas/fric ground, eef, self; drag decay
   const int* sc_sel;       // (B, M) self-collision particles
   const int* sc_idx;       // (B, M, Ks) their frozen candidates
@@ -42,7 +42,8 @@ struct SpringStepArgs {
   float* ff_out;           // (B, F, 3) last-substep finger forces
 };
 
-// Runs all S substeps of every env (one CTA per env) on ``stream``.
+// Runs all S substeps of every env on ``stream``: one CTA per env
+// (ranks 1) or a cluster of two (ranks 2).
 cudaError_t spring_mass_step_launch(const struct SpringStepArgs* a,
                                     cudaStream_t stream);
 

@@ -12,9 +12,10 @@
 // takes 256 threads with 4 pixels each (rows r, r+2, r+4, r+6), the fine
 // tile 128 threads with one pixel each. A batch of up to NT pairs sits in
 // shared memory as structure-of-arrays, sh[attr][pair], attrs [x, y, conic
-// a/b/c, opacity, r, g, b, depth]. K1 and K7 use WarpPixels instead (each
-// warp of the wide tile's CTA owns one 8x16 block) and blend_range_culled,
-// which skips the pairs that provably cannot reach a warp's block. Every
+// a/b/c, opacity, r, g, b, depth]. K1, K7 and K2 use WarpPixels instead
+// (each warp of the wide tile's CTA owns one 8x16 block) and
+// blend_range_culled, which skips the pairs that provably cannot reach a
+// warp's block. Every
 // compositor evaluates a (pixel, pair) through blend_pixel, so their
 // per-pixel sequences of operations are one.
 //
@@ -58,7 +59,7 @@ struct PixelsT {
   bool done[kPix];
 };
 
-using Pixels = PixelsT<kTileW, kThreads>;          // K1, K2, K6, K7, K8
+using Pixels = PixelsT<kTileW, kThreads>;          // K6, K8
 using FinePixels = PixelsT<kFineW, kFineThreads>;  // K4, K5
 static_assert(Pixels::kPix == kPixPerThread && kBatch == kThreads,
               "the wide tile's layout");
@@ -174,7 +175,7 @@ __device__ __forceinline__ void blend_range(
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K7: one 8x16 block of the 8x128 tile per warp
+// K1, K7 and K2: one 8x16 block of the 8x128 tile per warp
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockW = 16;
@@ -364,7 +365,7 @@ __device__ __forceinline__ void store_pixels(const PixelsT<TW, NT>& p,
   }
 }
 
-// store_pixels for the warp blocks of K1 and K7.
+// store_pixels for the warp blocks of K1, K7 and K2.
 __device__ __forceinline__ void store_pixels(const WarpPixels& p, int inst,
                                              int tx, int ty, int h_pad,
                                              int w_pad, float bg0, float bg1,

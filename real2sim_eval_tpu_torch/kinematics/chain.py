@@ -7,7 +7,7 @@ a fixed sequence of 4x4 composes over leading batch dims.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -29,6 +29,9 @@ class KinematicChain:
     topo_order: np.ndarray    # (L,) evaluation order (parents first)
     lower: np.ndarray
     upper: np.ndarray
+    # (device, dtype) -> (origins (L, 4, 4), axes (L, 3)) on that device,
+    # made once (``device_tables``)
+    _device: dict = field(default_factory=dict, compare=False, repr=False)
 
     @staticmethod
     def from_urdf(model: UrdfModel) -> "KinematicChain":
@@ -77,15 +80,26 @@ class KinematicChain:
     def link_index(self, name: str) -> int:
         return self.link_names.index(name)
 
+    def device_tables(self, device, dtype):
+        """(origins (L, 4, 4), axes (L, 3)) as ``dtype`` tensors on
+        ``device``, copied from the numpy tables on the first call for
+        that (device, dtype) and reused after: FK reads its constants
+        without a copy from the host (which would synchronise the card)."""
+        key = (torch.device(device), dtype)
+        if key not in self._device:
+            self._device[key] = (
+                torch.as_tensor(self.origins, dtype=dtype, device=device),
+                torch.as_tensor(self.axes, dtype=dtype, device=device))
+        return self._device[key]
+
     def _local(self, i: int, qpos: torch.Tensor) -> torch.Tensor:
-        local = torch.as_tensor(self.origins[i], dtype=qpos.dtype,
-                                device=qpos.device)
+        origins, axes = self.device_tables(qpos.device, qpos.dtype)
+        local = origins[i]
         jt = int(self.joint_type[i])
         if jt == 0:
             return local
         q = qpos[..., int(self.dof_index[i])]
-        axis = torch.as_tensor(self.axes[i], dtype=qpos.dtype,
-                               device=qpos.device)
+        axis = axes[i]
         motion = (_rot_about_axis(axis, q) if jt == 1
                   else _prismatic(axis, q))
         return local @ motion

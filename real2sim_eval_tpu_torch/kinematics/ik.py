@@ -62,15 +62,15 @@ def fk_link_jvp(chain: KinematicChain, q: torch.Tensor, link: int,
         path.append(i)
         i = int(chain.parent[i])
     E = q.shape[0]
+    origins, axes = chain.device_tables(q.device, q.dtype)
     P = None
     dP = q.new_zeros((n_active, E, 4, 4))
     for i in reversed(path):
-        L = torch.as_tensor(chain.origins[i], dtype=q.dtype, device=q.device)
+        L = origins[i]
         dL, k = None, int(chain.dof_index[i])
         jt = int(chain.joint_type[i])
         if jt:
-            axis = torch.as_tensor(chain.axes[i], dtype=q.dtype,
-                                   device=q.device)
+            axis = axes[i]
             motion, d_motion = ((_rot_about_axis(axis, q[:, k]),
                                  _rot_about_axis_d(axis, q[:, k])) if jt == 1
                                 else (_prismatic(axis, q[:, k]),

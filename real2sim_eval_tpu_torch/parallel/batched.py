@@ -8,7 +8,7 @@ Counterpart of the JAX package's parallel/batched.py. One control step:
   3. the spring-mass step: freezes in PyTorch, then all substeps in the
      CUDA kernel K3 (physics/fused_step.py);
 
-and one render, on one of the JAX package's two branches:
+and one render, on one of the JAX package's three branches:
 
   - incremental (``RasterConfig(incremental="auto")`` on the card, "on"
     anywhere; the JAX package's flagship branch): LBS of the object splats
@@ -24,7 +24,10 @@ and one render, on one of the JAX package's two branches:
   - full pipeline (``incremental="off"``, and "auto" on the CPU): LBS plus
     robot articulation of the whole scene (``compose``), per-camera
     preprocess and exact binning, then ONE launch of K1 (K4 with
-    ``kernel="fine"``) over every (env, camera, tile).
+    ``kernel="fine"``) over every (env, camera, tile);
+  - per env (``RasterConfig(backend="reference")``, or cameras of more
+    than one resolution): the whole scene of each env through
+    ``rasterize``, one camera at a time.
 
 Scene assets come in as ``BatchedAssets`` (see convert.py and testing.py);
 the host-side asset build of the JAX package (envs, loaders) is not part
@@ -49,7 +52,7 @@ from ..renderer.camera import Camera, setup_camera, wrist_w2c
 from ..renderer.incremental import build_static_raster, render_incremental
 from ..renderer.incremental_fine import (build_static_raster_fine,
                                          render_incremental_fine)
-from ..renderer.raster import RasterConfig, rasterize_batch
+from ..renderer.raster import RasterConfig, rasterize, rasterize_batch
 from ..renderer.scene import RobotArticulation
 from ..utils import transforms as tf
 from ..utils.device import resolve_device
@@ -120,9 +123,6 @@ class BatchedEvaluator:
         if len(self.episode_ids) != assets.state.sm.x.shape[0]:
             raise ValueError("episode_ids do not match the assets' batch")
         self.raster_config = raster_config or RasterConfig()
-        if self.raster_config.backend != "tiles":
-            raise ValueError("the batched evaluator renders with the tile "
-                             "pipeline (RasterConfig(backend='tiles'))")
         self.state = assets.state
         self.render_telemetry = None
 
@@ -138,17 +138,22 @@ class BatchedEvaluator:
         self._step_fn = make_fused_step_fn(a.opts, has_colliders=has_coll,
                                            device=self.device)
         self._build_ctrl = make_ctrl_builder(a.opts, a.force_threshold)
-        self._fixed_cams = [setup_camera(w, h, k, w2c)
-                            for w, h, k, w2c in a.cameras]
+        # extrinsics made on the device once: a render copies nothing from
+        # the host for them
+        self._fixed_cams = [(cam, torch.as_tensor(w2c, device=self.device))
+                            for cam, w2c in (setup_camera(w, h, k, w2c)
+                                             for w, h, k, w2c in a.cameras)]
         self._wrist_cams = [
             (Camera(width=int(w), height=int(h), fx=float(k[0][0]),
                     fy=float(k[1][1]), cx=float(k[0][2]), cy=float(k[1][2])),
              torch.as_tensor(np.asarray(e, np.float32), device=self.device))
             for w, h, k, e in a.wrist_cameras]
-        if len({(c.height, c.width) for c, _ in
-                self._fixed_cams + self._wrist_cams}) > 1:
-            raise NotImplementedError(
-                "the batched render needs one resolution for all cameras")
+        # the JAX package's branch rule (batched.py:341-346): the dense
+        # reference, or cameras of more than one resolution, render env by
+        # env and camera by camera
+        self.per_env = (self.raster_config.backend == "reference" or len(
+            {(c.height, c.width)
+             for c, _ in self._fixed_cams + self._wrist_cams}) > 1)
         mask = a.mask.cpu().numpy()
         self._robot_rows = torch.as_tensor(np.where(mask > 0)[0],
                                            device=self.device)
@@ -168,8 +173,8 @@ class BatchedEvaluator:
         n_static = (int(self._static_rows.shape[0])
                     + sum(int(pm["means3D"].shape[0])
                           for pm in a.mesh_params.values()))
-        self.incremental = (bool(self._fixed_cams) and n_static > 0
-                            and rc.incremental != "off"
+        self.incremental = (not self.per_env and bool(self._fixed_cams)
+                            and n_static > 0 and rc.incremental != "off"
                             and (rc.incremental == "on"
                                  or self.device.type == "cuda"))
         if not self.incremental:
@@ -428,10 +433,12 @@ class BatchedEvaluator:
             self.state = st.replace(qpos7=qpos_new)
             return (rgb.transpose(0, 1), depth.transpose(0, 1), wims,
                     wdepths)
+        if self.per_env:
+            return self._render_per_env(st)
         B = st.rel_pose.shape[0]
         scenes, qpos_new = self.compose(st, dc_only=self.sh_deg == 0)
-        cam_list = [(cam, torch.as_tensor(w2c, device=self.device)[None]
-                     .expand(B, 4, 4)) for cam, w2c in self._fixed_cams]
+        cam_list = [(cam, w2c[None].expand(B, 4, 4))
+                    for cam, w2c in self._fixed_cams]
         eef_rot = tf.quat_to_rot(st.grippers[:, 6:10])
         for cam, eef2c in self._wrist_cams:
             cam_list.append((cam, wrist_w2c(eef2c, st.grippers[:, :3],
@@ -450,6 +457,45 @@ class BatchedEvaluator:
         self.render_telemetry = (tele, drops[nf:])
         self.state = st.replace(qpos7=qpos_new)
         return ims, depths, wims, wdepths
+
+    def _render_per_env(self, st: BatchedState):
+        """The per-env branch (the JAX package's batched.py:768-795): the
+        full scene of each env through ``rasterize`` (the configured
+        backend and kernel family), one camera at a time, frames clipped
+        to [0, 1]. A camera list that is empty gives (B, 0, 1, 1) frames
+        and depths."""
+        B = st.rel_pose.shape[0]
+        scenes, qpos_new = self.compose(st, dc_only=self.sh_deg == 0)
+        eef_rot = tf.quat_to_rot(st.grippers[:, 6:10])
+        wrist = [(cam, wrist_w2c(eef2c, st.grippers[:, :3], eef_rot))
+                 for cam, eef2c in self._wrist_cams]
+        ims, depths, wims, wdepths = [], [], [], []
+        for b in range(B):
+            scene = [scenes[k][b] for k in SPLAT_KEYS]
+            for cams, out_rgb, out_dep in (
+                    (self._fixed_cams, ims, depths),
+                    ([(c, w2c[b]) for c, w2c in wrist], wims, wdepths)):
+                frames = [rasterize(cam, w2c, *scene, self.sh_deg,
+                                    config=self.raster_config,
+                                    device=self.device) for cam, w2c in cams]
+                out_rgb.append(torch.stack([torch.clamp(f[0], 0.0, 1.0)
+                                            for f in frames])
+                               if frames else None)
+                out_dep.append(torch.stack([f[1] for f in frames])
+                               if frames else None)
+
+        def batch(frames):
+            if frames[0] is None:
+                return torch.zeros((B, 0, 1, 1), device=self.device)
+            return torch.stack(frames)
+
+        self.render_telemetry = (
+            torch.zeros((len(self._fixed_cams), B, 4), dtype=torch.int32,
+                        device=self.device),
+            torch.zeros((len(self._wrist_cams), B), dtype=torch.int32,
+                        device=self.device))
+        self.state = st.replace(qpos7=qpos_new)
+        return batch(ims), batch(depths), batch(wims), batch(wdepths)
 
     def render_wrist(self, state: BatchedState, dyn: dict,
                      static_cull: bool, dyn_cull: bool):

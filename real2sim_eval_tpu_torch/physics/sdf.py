@@ -11,6 +11,7 @@ carried.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -118,12 +119,18 @@ def trilinear(corners8: torch.Tensor, f: torch.Tensor, s):
     return val, grad / torch.clamp(gl, min=1e-9)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_hi(shape: tuple, dtype, device) -> torch.Tensor:
+    """(3,) last voxel index of a grid, made on ``device`` once per shape
+    (a query copies nothing from the host)."""
+    return torch.tensor([n - 1 for n in shape], dtype=dtype, device=device)
+
+
 def sdf_query(grid: SdfGrid, pts: torch.Tensor):
     """Trilinear SDF value + unit gradient at (..., 3) query points in the
     grid's frame. Points outside the grid get distance 1e3 (no contact)."""
     nx, ny, nz = grid.shape
-    hi = torch.tensor([nx - 1, ny - 1, nz - 1], dtype=pts.dtype,
-                      device=pts.device)
+    hi = _grid_hi(grid.shape, pts.dtype, pts.device)
     u = (pts - grid.origin) * grid.inv_spacing
     inside = ((u >= 0.0) & (u <= hi)).all(-1)
     u = torch.minimum(torch.clamp(u, min=0.0), hi - 1e-4)

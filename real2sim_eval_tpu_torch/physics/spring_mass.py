@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from ..utils import transforms as tf
@@ -140,6 +139,9 @@ class StepTables:
     dyn_omega: torch.Tensor | None = None  # (B, 3)
     combo: dict | None = None             # combine_grids table
     n_f: int = 0
+    # the kernel's compacted spring table (fused_step.SpringRecords), built
+    # once per SpringMassParams by make_fused_step_fn; None: built per call
+    records: object | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +240,7 @@ def select_contact_particles(opts: PhysicsOptions, combo: dict, x, v, T_all):
     each collider over the control step and twice each particle's own
     travel. Returns (cand (B, PM) i64, cand_ok (B, PM) bool,
     n_dropped (B,) i32)."""
-    dims = np.asarray(combo["dims"])
-    half = (torch.as_tensor(dims - 1, dtype=x.dtype, device=x.device)
+    half = (combo["hi"].to(x.dtype)
             / combo["inv_spacing"][:, None]) * 0.5                  # (C, 3)
     center_local = combo["origin"] + half
     R_bound = _norm3(half)
@@ -284,8 +285,8 @@ def freeze(params: SpringMassParams, opts: PhysicsOptions,
         clip(params.collide_eef_fric, 0.0, 2.0),
         clip(params.collide_self_elas, 0.0, 1.0),
         clip(params.collide_self_fric, 0.0, 2.0),
-        torch.exp(torch.tensor(-opts.dt * opts.drag_damping,
-                               dtype=torch.float32, device=dev)),
+        torch.exp(torch.full((), -opts.dt * opts.drag_damping,
+                             dtype=torch.float32, device=dev)),
         torch.zeros((), dtype=torch.float32, device=dev)]).to(torch.float32)
     kw = dict(
         masses=params.masses, nbr_idx=params.nbr_idx.long(),

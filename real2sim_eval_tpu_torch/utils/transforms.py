@@ -6,6 +6,8 @@ Counterpart of the JAX package's utils/transforms.py: same formulas, same
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -103,14 +105,19 @@ def rot_to_axis_angle(R: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return xyz * scale[..., None]
 
 
+@functools.lru_cache(maxsize=None)
+def _se3_bottom(dtype, device) -> torch.Tensor:
+    """The constant row [0, 0, 0, 1], made on ``device`` once."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+
 def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) + (..., 3) -> (..., 4, 4)."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    bottom = _se3_bottom(R.dtype, R.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -1,27 +1,30 @@
 """Per-phase split of the spring-mass step K3 on the card, by clock64().
 
-    python3 scripts/k3_phase_clocks.py [--tree DIR] [--reps N]
+    python3 scripts/k3_phase_clocks.py [--tree DIR] [--reps N] [--ranks R]
 
 Builds the port's CUDA extension from DIR (default: this checkout) with an
 instrumented copy of ``csrc/spring_mass_step.cu`` in DIR/scratch/
 (git-ignored; the committed kernel is never changed), runs the flagship's
 K3 step (64 envs, the 1000-particle rope, 667 substeps; the state after
-one control step from rest) ``--reps`` times and prints one JSON line:
+one control step from rest) ``--reps`` times, launched with ``--ranks``
+CTAs per env (default: the main path's, ``fused_step.K3_RANKS``), and
+prints one JSON line:
 for each phase the mean over threads of the cycles per substep, and the
 same in microseconds at the clock the run implies (the loop's cycles over
 its CUDA-event time). Every thread of every CTA stamps clock64() at the
 phase boundaries of each substep:
 
   A          springs + dashpots, gravity, drag (to the end of its writes);
-  A_wait     the barrier after A;
+  A_wait     the barrier after A (the cluster's with two CTAs per env);
   B          self-collision, its two barriers included;
   C          SDF contact of the frozen candidates (inside the particle loop);
   D          ground + integration (the rest of the particle loop);
   D_wait     the barrier that ends the substep.
 
-The stamps go in at ``// clock: NAME`` lines of the source, which the
-script first inserts at the anchors in ANCHORS (text of
-``csrc/spring_mass_step.cu``, one CTA per env); a source that already
+A thread that owns no particle (1024 threads, 1000 particles) stamps ~0
+for A, C and D and waits at the barriers. The stamps go in at ``// clock:
+NAME`` lines of the source, which the script first inserts at the anchors
+in ANCHORS (text of ``csrc/spring_mass_step.cu``); a source that already
 carries such lines is instrumented as it is. Needs one CUDA card.
 """
 
@@ -84,16 +87,15 @@ STAMPS = {
     "flush": "k3c.flush();",
 }
 
-# (text, text with the markers) in the one-CTA-per-env kernel
+# (text, text with the markers) in the kernel's body (both launches)
 ANCHORS = [
     ("  extern __shared__ float smem[];\n",
      "  extern __shared__ float smem[];\n  // clock: init\n"),
     ("  for (int s = 0; s < a.S; ++s) {\n",
      "  for (int s = 0; s < a.S; ++s) {\n    // clock: substep\n"),
-    ("      svn[2 * N + i] = (vi2 + a2 * dt) * decay;\n    }\n"
-     "    __syncthreads();\n",
-     "      svn[2 * N + i] = (vi2 + a2 * dt) * decay;\n    }\n"
-     "    // clock: a_end\n    __syncthreads();\n    // clock: a_sync\n"),
+    ("    drift(a, rank, s, 0);\n    env_barrier<R>();\n",
+     "    // clock: a_end\n    drift(a, rank, s, 0);\n    env_barrier<R>();\n"
+     "    // clock: a_sync\n"),
     ("    // ---- C + D: contact",
      "    // clock: b_end\n    // ---- C + D: contact"),
     ("      if (C > 0) {\n        const float nx[3]",
@@ -101,9 +103,9 @@ ANCHORS = [
     ("      // ground response with time-of-impact integration\n",
      "      // clock: c_end\n"
      "      // ground response with time-of-impact integration\n"),
-    ("    __syncthreads();\n  }\n\n  // last-substep finger forces",
-     "    // clock: d_end\n    __syncthreads();\n    // clock: d_sync\n  }\n"
-     "  // clock: flush\n\n  // last-substep finger forces"),
+    ("    drift(a, rank, s, 3);\n    env_barrier<R>();\n  }\n",
+     "    // clock: d_end\n    drift(a, rank, s, 3);\n    env_barrier<R>();\n"
+     "    // clock: d_sync\n  }\n  // clock: flush\n"),
 ]
 
 PHASES = ("A", "A_wait", "B", "C", "D", "D_wait", "substep")
@@ -201,6 +203,8 @@ def main() -> int:
     ap.add_argument("--tree", type=Path,
                     default=Path(__file__).resolve().parents[1])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="CTAs per env: 1, or 2 (a cluster)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k3_phase_clocks: no CUDA device", file=sys.stderr)
@@ -212,14 +216,15 @@ def main() -> int:
     from real2sim_eval_tpu_torch.physics import fused_step
 
     opts, tab, state = flagship_step_inputs()
-    fused_step.spring_mass_step(opts, tab, state)      # warm-up
+    ranks = fused_step.K3_RANKS if args.ranks is None else args.ranks
+    fused_step.spring_mass_step(opts, tab, state, ranks=ranks)   # warm-up
     torch.cuda.synchronize()
     if lib.k3_clock_reset():
         raise SystemExit("k3_clock_reset failed")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(args.reps):
-        fused_step.spring_mass_step(opts, tab, state)
+        fused_step.spring_mass_step(opts, tab, state, ranks=ranks)
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / args.reps
@@ -235,6 +240,7 @@ def main() -> int:
     ghz = cyc["substep"] * S / (ms * 1e6)
     print(json.dumps({
         "tree": str(tree), "card": torch.cuda.get_device_name(0),
+        "ranks": ranks,
         "build_s": build_s, "envs": int(state.x.shape[0]),
         "particles": int(state.x.shape[1]), "substeps": S,
         "threads": threads, "kernel_ms": ms, "implied_ghz": ghz,

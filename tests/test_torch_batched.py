@@ -11,8 +11,10 @@ states and frames are compared at the JAX package's own tolerances
 (tests/test_batched.py: particles 5e-5, grippers 1e-5). The port renders
 on each of its branches: the full pipeline (``incremental="off"``), the
 incremental one with either merge (sort + K2, stream K6), the fine family
-(``kernel="fine"``: K5 for the fixed cameras, K4 for the wrist) and the
-wide fixed cameras with a fine wrist (``wrist_kernel="fine"``). Frames of
+(``kernel="fine"``: K5 for the fixed cameras, K4 for the wrist), the
+wide fixed cameras with a fine wrist (``wrist_kernel="fine"``) and the
+per-env branch of the dense reference (``backend="reference"``); the
+per-env branch also renders a wrist camera of another resolution. Frames of
 the fine family are held to a JAX evaluator of the same state with
 ``RasterConfig(backend="reference", kernel="fine")``, whose dense
 reference gates at the fine tiles too."""
@@ -36,11 +38,12 @@ BRANCHES = {"off": RasterConfig(incremental="off"),
             "stream": RasterConfig(incremental="on", merge_kernel="stream"),
             "fine": RasterConfig(incremental="on", kernel="fine"),
             "wrist_fine": RasterConfig(incremental="on",
-                                       wrist_kernel="fine")}
+                                       wrist_kernel="fine"),
+            "reference": RasterConfig(backend="reference")}
 # the kernel family of the (fixed, wrist) frames of each branch
 FAMILIES = {"off": ("wide", "wide"), "sort": ("wide", "wide"),
             "stream": ("wide", "wide"), "fine": ("fine", "fine"),
-            "wrist_fine": ("wide", "fine")}
+            "wrist_fine": ("wide", "fine"), "reference": ("wide", "wide")}
 
 
 def jax_assets_tree(ev) -> dict:
@@ -179,7 +182,8 @@ def test_whole_slice_matches_jax(stepped, jax_fine_frames, branch):
     j_out = fam[fixed][:2] + fam[wrist][2:4]
     tev = TEval(tev0.assets, EPISODES, raster_config=BRANCHES[branch],
                 device="cpu")
-    assert tev.incremental == (branch != "off")
+    assert tev.incremental == (branch not in ("off", "reference"))
+    assert tev.per_env == (branch == "reference")
     tev.state = ts
     assert np.isfinite(ts.sm.x.numpy()).all()
     np.testing.assert_allclose(ts.sm.x.numpy(), np.asarray(js.sm.x),
@@ -321,3 +325,46 @@ def test_wrist_precull_is_pixel_exact(tmp_path):
     assert outs["on"][0].max() > 0.05
     np.testing.assert_array_equal(outs["on"][0], outs["off"][0])
     np.testing.assert_array_equal(outs["on"][1], outs["off"][1])
+
+
+def test_mixed_resolution_renders_per_env(tmp_path):
+    """Cameras of two resolutions (the fixed 64x128 test camera, a 32x96
+    wrist camera) take the per-env branch in both packages: the port's
+    frames, on the tile pipeline, against the JAX evaluator's dense
+    reference of the same state, at the compositor tolerances."""
+    from real2sim_eval_tpu.parallel import BatchedEvaluator as JEval
+    from real2sim_eval_tpu.renderer import RasterConfig as JRC
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
+
+    wrist = dict(TEST_CAMERAS[1], h=32, w=96,
+                 intr=[45.0, 0.0, 48.0, 0.0, 45.0, 16.0, 0.0, 0.0, 1.0])
+    rope = make_rope_points(n=60, length=0.3)
+    write_fixture_checkpoint(tmp_path, "rope_mixed", rope, spring_Y=2e3)
+    gs = make_synthetic_scene(tmp_path / "scans", rope_pts=rope,
+                              ik_urdf=BUILTIN_URDF, n_table=200)
+    cfg = full_cfg(tmp_path, "rope_mixed", gs=gs,
+                   cameras=[TEST_CAMERAS[0], wrist],
+                   physics_over=dict(dt=2e-4, self_collision=False))
+    jev = JEval(cfg, episode_ids=[0, 1],
+                raster_config=JRC(backend="reference"), physics_backend="xla")
+    tev = TEval(assets_from_numpy(jax_assets_tree(jev), "cpu"), [0, 1],
+                device="cpu")
+    assert tev.per_env and not tev.incremental
+    j_out = jev.render()
+    t_out = tev.render()
+    for (name, jv), tv in zip((("fixed rgb", j_out[0]),
+                               ("fixed depth", j_out[1]),
+                               ("wrist rgb", j_out[2]),
+                               ("wrist depth", j_out[3])), t_out):
+        jv, tv = np.asarray(jv), tv.numpy()
+        assert tv.shape == jv.shape, name
+        if "rgb" in name:
+            assert jv.max() > 0.05, name
+            np.testing.assert_allclose(tv, jv, atol=2e-3, err_msg=name)
+        else:
+            flips = int((np.abs(tv - jv) > 1e-2).sum())
+            assert flips <= max(5, int(2e-4 * tv.size)), (name, flips)
+    assert t_out[2].shape[-2:] == (32, 96)
+    np.testing.assert_allclose(tev.state.qpos7.numpy(),
+                               np.asarray(jev.state.qpos7), atol=1e-4)
+    assert sum(tev.render_drops().values()) == 0

@@ -232,3 +232,110 @@ def test_dense_random_splats():
     hit = reaches(gone[:, :, None, None], px, py).flatten(1).any(1)
     assert not bool(hit.any()), gone[:, hit][:, :5].T
     assert int((~keep).sum()) > n // 2
+
+
+def culled_sparse(pairs, inst_ids, tile_ids, starts, ends, rgb_cache,
+                  depth_cache, n_tx, n_ty, bg=(0.0, 0.0, 0.0)):
+    """K2's walk with K1's block cull in plain PyTorch: each dirty 8x128
+    tile split into its eight 8x16 blocks, each block blending only the
+    pairs of the tile's range that ``block_cull_keep`` keeps for it (the
+    walk of a K2 warp), through the fine-tile plain blend."""
+    n_b = tk.TILE_W // tk.BLOCK_W
+    rows, b_inst, b_tile, b_starts, b_ends, off = [], [], [], [], [], 0
+    for k in range(inst_ids.shape[0]):
+        t = int(tile_ids[k])
+        tx, ty = t % n_tx, t // n_tx
+        idx = torch.arange(int(starts[k]), int(ends[k]))
+        for w in range(n_b):
+            keep = tk.block_cull_keep(
+                pairs[:, idx], torch.tensor(float(tx * tk.TILE_W
+                                                  + w * tk.BLOCK_W)),
+                torch.tensor(float(ty * tk.TILE_H)))
+            rows.append(idx[keep])
+            b_inst.append(int(inst_ids[k]))
+            b_tile.append(ty * n_tx * n_b + tx * n_b + w)
+            b_starts.append(off)
+            off += int(keep.sum())
+            b_ends.append(off)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    kept = pairs[:, torch.cat(rows)] if rows else pairs[:, :0]
+    out = tk.composite_sparse_plain(
+        kept, i32(b_inst), i32(b_tile), i32(b_starts), i32(b_ends),
+        rgb_cache, depth_cache, n_tx * n_b, n_ty, bg, tile_w=tk.BLOCK_W)
+    return out, kept.shape[1]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_culled_dirty_tiles_are_bitwise_plain(seed, monkeypatch):
+    """K2's block cull on the CPU: the small scene split into 260 static
+    and 40 dynamic splats (two envs, the dynamic ones a cluster that moves
+    between them) rendered incrementally (sort merge). The block-culled plain
+    blend over the step's dirty-tile list is bitwise
+    ``composite_sparse_plain`` (K2's plain version) on the same inputs, and
+    the incremental frames it gives are within the render tests' tolerance
+    of the JAX package's incremental render (its ``rasterize_tiles_sparse``
+    in interpret mode, as its own tests run it)."""
+    from real2sim_eval_tpu.renderer import incremental as jinc
+    from real2sim_eval_tpu.renderer.camera import setup_camera as j_setup
+    from real2sim_eval_tpu_torch.renderer import RasterConfig
+    from real2sim_eval_tpu_torch.renderer import incremental as tinc
+    from real2sim_eval_tpu_torch.renderer.camera import setup_camera
+
+    sc = scene(seed)
+    static = {k: v[:260] for k, v in sc.items()}
+    dyn = {k: np.stack([v[260:]] * 2) for k, v in sc.items()}
+    # a cluster over a few tiles, further left and nearer in env 1
+    rng = np.random.default_rng(seed + 10)
+    dyn["means3D"] = (np.float32([0.2, 0.0, 1.5]) + rng.normal(
+        scale=0.05, size=(2, 40, 3))).astype(np.float32)
+    dyn["means3D"][1] += np.float32([-0.4, 0.05, -0.3])
+    dyn["opacities"] = dyn["opacities"][..., None]
+    static["opacities"] = static["opacities"][:, None]
+    k = np.array([[80.0, 0, W / 2], [0, 80.0, H / 2], [0, 0, 1]], np.float32)
+    cam, w2c = setup_camera(W, H, k, np.eye(4, dtype=np.float32))
+    st = tinc.build_static_raster(
+        cam, torch.as_tensor(np.asarray(w2c)),
+        {key: torch.as_tensor(v) for key, v in static.items()}, 0, BG)
+    cams = [(cam, st, torch.as_tensor(np.asarray(w2c)))]
+    dyn_t = {key: torch.as_tensor(v) for key, v in dyn.items()}
+    seen = {}
+    plain = tinc.rasterize_tiles_sparse
+
+    def culled(*args):
+        seen["args"] = args
+        out, seen["kept"] = culled_sparse(*args)
+        return out
+
+    monkeypatch.setattr(tinc, "rasterize_tiles_sparse", culled)
+    rgb_c, dep_c, tele = tinc.render_incremental(
+        cams, dyn_t, 0, RasterConfig(merge_kernel="sort"), bg=BG)
+    monkeypatch.setattr(tinc, "rasterize_tiles_sparse", plain)
+    rgb_p, dep_p, _ = tinc.render_incremental(
+        cams, dyn_t, 0, RasterConfig(merge_kernel="sort"), bg=BG)
+    args = seen["args"]
+    n_dirty, rows = int(args[1].numel()), int((args[4] - args[3]).sum())
+    assert 0 < n_dirty < 2 * N_TX * N_TY
+    assert seen["kept"] < tk.TILE_W // tk.BLOCK_W * rows  # the cull cuts
+    frames_c = culled_sparse(*args)[0]
+    frames_p = tk.composite_sparse_plain(*args)
+    assert torch.equal(frames_c[0], frames_p[0])
+    assert torch.equal(frames_c[1], frames_p[1])
+    assert torch.equal(rgb_c, rgb_p) and torch.equal(dep_c, dep_p)
+
+    jcam, jw2c = j_setup(W, H, k, np.eye(4, dtype=np.float32))
+    cfg = jraster.RasterConfig(backend="pallas", interpret=True,
+                               max_pairs_factor=16.0,
+                               max_tiles_per_gaussian=64, max_large=300,
+                               pack_payloads=False)
+    js = jinc.build_static_raster(
+        jcam, jw2c, {key: jnp.asarray(v) for key, v in static.items()}, 0,
+        cfg, bg=BG)
+    rgb_j, dep_j, tele_j = jinc.render_incremental(
+        [(jcam, js, jw2c)], {key: jnp.asarray(v) for key, v in dyn.items()},
+        0, cfg, t_budget=2 * N_TX * N_TY, p_mix=8192, bg=BG)
+    assert (np.asarray(tele_j)[..., 1:] == 0).all()
+    np.testing.assert_array_equal(tele.numpy()[..., 0],
+                                  np.asarray(tele_j)[..., 0])
+    np.testing.assert_allclose(rgb_c.numpy(), np.asarray(rgb_j), atol=2e-3)
+    flips = int((np.abs(dep_c.numpy() - np.asarray(dep_j)) > 1e-2).sum())
+    assert flips <= max(5, int(2e-4 * dep_c.numel()))

@@ -178,3 +178,40 @@ def test_written_out_jacobian_matches_autodiff():
     np.testing.assert_allclose(e.numpy(), err(q).numpy(), atol=1e-6)
     np.testing.assert_allclose(de.permute(1, 2, 0).numpy(), want.numpy(),
                                atol=2e-5)
+
+
+def test_chain_device_constants_are_built_once():
+    """FK and IK read each link's origin and axis from device tables that
+    the chain makes once per (device, dtype): they equal the numpy
+    tables, the second call returns the same tensors, and FK, the IK's
+    forward-mode FK and a whole IK solve give bitwise what tables copied
+    from numpy on every call give."""
+    from real2sim_eval_tpu_torch.kinematics.ik import fk_link_jvp
+
+    _, tc = chains()
+    dev = torch.device("cpu")
+    origins, axes = tc.device_tables(dev, torch.float32)
+    np.testing.assert_array_equal(origins.numpy(),
+                                  tc.origins.astype(np.float32))
+    np.testing.assert_array_equal(axes.numpy(), tc.axes.astype(np.float32))
+    again = tc.device_tables(dev, torch.float32)
+    assert again[0] is origins and again[1] is axes
+    assert list(tc._device) == [(dev, torch.float32)]
+
+    rng = np.random.default_rng(5)
+    q = T(rng.uniform(-1, 1, (4, tc.n_dof)) + np.r_[Q0, np.zeros(
+        tc.n_dof - 7)])
+    target = tc.fk_link(q + 0.05, "link7")
+    link7 = tc.link_index("link7")
+    outs = {}
+    for name in ("cached", "copied"):
+        if name == "copied":      # the tables copied anew at every read
+            object.__setattr__(tc, "device_tables", lambda d, t: (
+                torch.as_tensor(tc.origins, dtype=t, device=d),
+                torch.as_tensor(tc.axes, dtype=t, device=d)))
+        outs[name] = (tc.fk(q), tc.fk_link(q, "link7"),
+                      *fk_link_jvp(tc, q, link7, 7),
+                      t_make_ik(tc, "link7", n_active=7)(q, target))
+    assert list(tc._device) == [(dev, torch.float32)]    # not rebuilt
+    for a, b in zip(outs["cached"], outs["copied"]):
+        assert torch.equal(a, b)

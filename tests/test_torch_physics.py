@@ -263,6 +263,119 @@ def test_step_matches_jax(case):
         assert float(s_plain.x[..., 2].min()) > -0.02   # no tunnelling
 
 
+def test_pusher_margin_matches_jax():
+    """tests/test_pallas_step.py:234 (test_pusher_margin): a 0.06 m box
+    tool at 4 mm voxels as the one finger with ``use_pusher`` (the 1 mm
+    margin on the dynamic collider), its bottom face 1.5 mm above the rope
+    and descending at 0.2 m/s; two control steps of the port's fused step
+    against the JAX ``make_step_fn`` within 5e-5 on positions."""
+    pj, pt, x0 = rope_params()
+    B, n = 1, x0.shape[0]
+    okw = dict(n_fingers=1, use_pusher=True)
+    oj, ot = small_opts(jsm, **okw), small_opts(tsm, **okw)
+    cj, ct = controls(B, 1, eef_xyz=(0.2, 0.0, 0.0815),
+                      eef_vel=(0.0, 0.0, -0.2))
+    colj, fingers, _, table, _ = box_collider((0.06, 0.06, 0.06), 0.004,
+                                              finger=True)
+    col_t = tsm.MeshColliderSet(fingers=fingers, finger_pose_table=T(table),
+                                statics=(),
+                                static_pose=torch.zeros((B, 0, 4, 4)))
+    step_j = jsm.make_step_fn(oj, has_colliders=True)
+    ref = jax.jit(jax.vmap(lambda sm, c: step_j(pj, colj, sm, c)))
+    fused = fused_step.make_fused_step_fn(ot, has_colliders=True,
+                                          device="cpu")
+    s_ref = jsm.SpringMassState(x=jnp.asarray(x0[None]),
+                                v=jnp.zeros((B, n, 3)),
+                                finger_forces=jnp.zeros((B, 1, 3)))
+    s_port = tsm.SpringMassState(x=T(x0[None]), v=torch.zeros((B, n, 3)),
+                                 finger_forces=torch.zeros((B, 1, 3)))
+    # the same step with the fingers' 5 mm margin: the pusher's margin
+    # must change the result (the tool reaches the rope)
+    finger = fused_step.make_fused_step_fn(
+        dataclasses.replace(ot, use_pusher=False), has_colliders=True,
+        device="cpu")
+    s_finger = s_port
+    for _ in range(2):
+        s_ref = ref(s_ref, cj)
+        s_port = fused(pt, col_t, s_port, ct, T(x0[None]))
+        s_finger = finger(pt, col_t, s_finger, ct, T(x0[None]))
+    assert float((s_port.x - s_finger.x).abs().max()) > 1e-4
+    np.testing.assert_allclose(s_port.x.numpy(), np.asarray(s_ref.x),
+                               atol=5e-5)
+    np.testing.assert_allclose(s_port.v.numpy(), np.asarray(s_ref.v),
+                               atol=5e-5 * 50)
+
+
+def dense_tables(n: int, D: int, seed: int):
+    """Random (n, D) neighbour tables as ``freeze`` makes them: slot ids,
+    rest lengths, stiffness and damping, about a third of the slots
+    inactive (0, 0; padding: own id, rest 1), some stiffness-only and
+    damping-only slots, and particles 0 and n // 2 with no springs."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, (n, D))
+    rest = rng.uniform(0.005, 0.02, (n, D)).astype(np.float32)
+    k = rng.uniform(1e3, 1e4, (n, D)).astype(np.float32)
+    c = np.full((n, D), 100.0, np.float32)
+    off = rng.random((n, D)) < 0.35
+    off[[0, n // 2]] = True
+    k[off], c[off] = 0.0, 0.0
+    idx[off] = np.arange(n)[:, None].repeat(D, 1)[off]
+    rest[off] = 1.0
+    k[rng.random((n, D)) < 0.05] = 0.0           # damping only
+    c[(rng.random((n, D)) < 0.05) & (k > 0)] = 0.0   # stiffness only
+    return (torch.as_tensor(idx), torch.as_tensor(rest), torch.as_tensor(k),
+            torch.as_tensor(c))
+
+
+@pytest.mark.parametrize("n", [300, 1500])
+def test_spring_records_hold_the_active_slots(n):
+    """K3's compacted table: exactly the slots with stiffness or damping
+    nonzero (the slots the kernel does not skip), in ascending slot order
+    per particle, with their neighbour, stiffness, damping and rest; a
+    particle without springs has an empty row. n 1500 is over the
+    kernel's 1024 threads (a thread takes two particles)."""
+    D = 12
+    idx, rest, k, c = dense_tables(n, D, seed=n)
+    rec = fused_step.spring_records(idx, rest, k, c)
+    active = ((k != 0) | (c != 0)).numpy()
+    rp = rec.row_ptr.numpy()
+    assert rec.row_ptr.dtype == torch.int32 and rp[0] == 0
+    np.testing.assert_array_equal(np.diff(rp), active.sum(1))
+    assert rp[1] == rp[0] and rp[n // 2 + 1] == rp[n // 2]
+    r = rec.records
+    assert r.dtype == torch.float32 and tuple(r.shape) == (rp[-1], 4)
+    j = r[:, 0].contiguous().view(torch.int32).numpy()
+    for i in (1, n // 3, n - 1):
+        slots = np.nonzero(active[i])[0]
+        rows = slice(rp[i], rp[i + 1])
+        np.testing.assert_array_equal(rec.slot.numpy()[rows], i * D + slots)
+        np.testing.assert_array_equal(j[rows], idx.numpy()[i, slots])
+        for q, t in ((1, k), (2, c), (3, rest)):
+            np.testing.assert_array_equal(r[rows, q].numpy(),
+                                          t.numpy()[i, slots])
+    i_all, d_all = np.nonzero(active)
+    np.testing.assert_array_equal(rec.slot.numpy(), i_all * D + d_all)
+
+
+def test_record_spring_force_is_the_dense_force():
+    """The spring + dashpot force over the compacted records is the dense
+    plain force (``spring_mass.spring_forces``) exactly."""
+    n, D, B = 1500, 12, 2
+    idx, rest, k, c = dense_tables(n, D, seed=7)
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.normal(scale=0.05, size=(B, n, 3)),
+                        dtype=torch.float32)
+    v = torch.as_tensor(rng.normal(scale=0.1, size=(B, n, 3)),
+                        dtype=torch.float32)
+    tab = tsm.StepTables(masses=torch.ones(n), nbr_idx=idx, nbr_rest=rest,
+                         nbr_k=k, nbr_c=c, scal=torch.zeros(8),
+                         telemetry=torch.zeros((B, 4), dtype=torch.int32))
+    dense = tsm.spring_forces(tab, x, v)
+    rec = fused_step.spring_records(idx, rest, k, c)
+    assert float(dense.abs().max()) > 0.0
+    assert torch.equal(fused_step.spring_forces_records(rec, x, v, D), dense)
+
+
 def test_fused_step_rejects_bad_state():
     _, pt, x0 = rope_params()
     ot = small_opts(tsm)
