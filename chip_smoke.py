@@ -23,8 +23,11 @@ of the flagship scene (130,120 gaussians, degree-3 SH, 8 views at
 848x480), after holding K7 and K8 against their plain versions and the
 gradients against autograd of the plain compositor, with broken backwards
 that must fail the gate. Each kernel's check on a small scene comes first
-(K1, K7, K8, K2, K6, K4, K5, K3): K1 and K7 bitwise their plain version,
-with K1's evaluations before and after its per-warp block cull. Every
+(K1, K7, K8, K2, K6, K4, K5, K3): K1, K7, K2 and K6 bitwise their plain
+versions, with K1's evaluations before and after its per-warp block cull.
+Before the flagship's timed steps, ``ik_graph`` holds the IK solve's CUDA
+graph bitwise to the eager solve (with a stale-input mutant that must
+fail). Every
 compositor's least time counts only the (pixel, pair) evaluations that
 reach a pixel (``pixel_pair_walks``).
 Every line of standard output is one JSON object (the first holds the
@@ -1013,9 +1016,10 @@ def check_k2_k6_small():
     """K2 and K6 against their plain versions on check_k1_small's 848x480
     scene split into static and dynamic splats (4 envs, both fixed
     cameras): the kernels' inputs are those of one incremental render.
-    K2 (K1's warp blocks and exact block cull) must be bitwise, K6 within
-    the compositor gates. A no-op mutant (the cached frames returned
-    unchanged) must land over the gates."""
+    Both (K1's warp blocks and exact block cull; K6 on the merge of the
+    static and dynamic segments) must be bitwise their plain versions. A
+    no-op mutant (the cached frames returned unchanged) must land over the
+    gates."""
     from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
     from real2sim_eval_tpu_torch.renderer import RasterConfig, incremental
     from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
@@ -1042,8 +1046,7 @@ def check_k2_k6_small():
         gate_vs_plain(phase, {"phase": phase, "envs": B, "cameras": 2,
                               "dirty_tiles": int(args[at_inst].numel())},
                       getattr(tk, name)(*args), plain(*args),
-                      tk.copy_frames(args[-5], args[-4]),
-                      bitwise=phase == "k2_check")
+                      tk.copy_frames(args[-5], args[-4]), bitwise=True)
 
 
 def check_k4_small():
@@ -1124,6 +1127,7 @@ def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
     sync()
     torch.cuda.reset_peak_memory_stats()
     ext.reset_launch_counts()
+    captures, replays = ev._ik.graph.captures, ev._ik.graph.replays
     phys, rend, dirty, merged, kept, fine = [], [], [], [], [], []
     for _ in range(steps):
         ms, _ = time_host(lambda: ev.step(actions))
@@ -1135,6 +1139,8 @@ def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
         kept.append(ev.render_stats.get("wrist_static_blocks"))
         fine.append(ev.render_stats.get("dirty_fine_tiles"))
     launches = dict(ext.LAUNCHES)
+    ik_graphs = {"captures": ev._ik.graph.captures - captures,
+                 "replays": ev._ik.graph.replays - replays}
     peak = torch.cuda.max_memory_allocated()
 
     ims, depths, wims, wdepths = frames
@@ -1180,7 +1186,8 @@ def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
                else {"mean": float(kept.mean()), "max": int(kept.max())}),
            "render_drops": drops, "physics_telemetry": tele,
            "frames_finite": finite, "frame_shapes_ok": shapes_ok,
-           "frame_mean": float(ims.mean()), "launches": launches}
+           "frame_mean": float(ims.mean()), "launches": launches,
+           "ik_graph_replays": ik_graphs}
     emit(out)
     if sum(drops.values()) or any(tele[k] for k in (
             "self_candidates_dropped", "self_particles_dropped",
@@ -1192,11 +1199,15 @@ def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
         if launches[name] < steps:
             fail(f"{phase}: {name} launched {launches[name]} times in "
                  f"{steps} steps")
+    # the mimic's and compose_dyn's solves, graphed, captured before
+    if ik_graphs != {"captures": 0, "replays": 2 * steps}:
+        fail(f"{phase}: the IK graph ran {ik_graphs} in {steps} steps")
     return launches, out
 
 
 def run_flagship():
-    """The default path: incremental render, sort merge, pre-cull auto."""
+    """The default path: incremental render, sort merge, pre-cull auto;
+    ik_graph first, on the evaluator's state before its timed steps."""
     from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
     from real2sim_eval_tpu_torch.testing import make_flagship_assets
 
@@ -1208,15 +1219,110 @@ def run_flagship():
     if not ev.incremental:
         fail("the flagship does not take the incremental branch")
     actions = flagship_actions()
+    ik = ik_graph(ev, actions)
     launches, out = run_path(
         "flagship", ev, actions, TIMED_STEPS,
         ("spring_mass_step", "tile_sparse", "tile_composite"), setup_s)
-    return ev, actions, launches, out
+    return ev, actions, launches, out, ik
+
+
+def ik_targets(ev, actions) -> dict:
+    """The flagship's two IK targets: the mimic's (the action pose) and
+    compose_dyn's (the current eef)."""
+    from real2sim_eval_tpu_torch.utils import transforms as tf
+
+    st = ev.state
+    B = actions.shape[0]
+    return {"mimic": tf.make_se3(actions[:, 3:12].reshape(B, 3, 3),
+                                 actions[:, :3]),
+            "compose_dyn": tf.make_se3(tf.quat_to_rot(
+                st.grippers[:, 6:10]), st.grippers[:, :3])}
+
+
+def stale_replay(solver):
+    """The mutant ik_graph must reject: ``solver``'s graph replayed without
+    copying the new inputs into its static inputs."""
+    from real2sim_eval_tpu_torch.utils.graph import signature
+
+    def call(q_init, target):
+        _, replay, out = solver.graph._graphs[signature((q_init, target))]
+        replay()
+        return out.clone()
+    return call
+
+
+def ik_graph(ev, actions) -> dict:
+    """The IK solve as one CUDA graph (``make_ik_fn`` on the card), on a
+    solver made afresh from the flagship's chain: the first call's ms
+    (warm-up on a side stream, capture, replay); for both flagship targets
+    and three successive inputs each (the arm's pose moved by up to 0.05
+    rad a joint, the target by 1 cm more each time) the graphed solve must
+    equal the eager solve bitwise; a result of the first replay must be
+    unchanged after the next; a mutant that replays without copying the
+    new inputs must fail that gate. Then the synchronised ms of both
+    solves, graphed (mean of 5) and eager (mean of 2), and of one graphed
+    solve (mean of 5). The evaluator's own solver is captured in the
+    flagship's warm-up step; run_path counts its replays."""
+    import torch
+
+    from real2sim_eval_tpu_torch.kinematics import make_ik_fn
+
+    targets = ik_targets(ev, actions)
+    q0 = ev.state.qpos7
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    inputs = []
+    for k in range(3):
+        q = q0 + 0.05 * (2.0 * torch.rand(q0.shape, generator=gen,
+                                          device=DEVICE) - 1.0)
+        for name, t in targets.items():
+            t = t.clone()
+            t[:, 0, 3] += 0.01 * k
+            inputs.append((name, q, t))
+    solver = make_ik_fn(ev.assets.chain, ev._eef_idx, n_active=7)
+    sync()
+    first_ms, first = time_host(lambda: solver(*inputs[0][1:]))
+    first_copy = first.clone()
+
+    def gate(fn) -> list:
+        return [torch_equal(fn(q, t), solver.eager(q, t))
+                for _, q, t in inputs]
+
+    bitwise = gate(solver)
+    kept = torch_equal(first, first_copy)
+    mutant = gate(stale_replay(solver))
+    q, t = q0, targets["mimic"]
+    replay_ms = np.mean([time_host(lambda: [solver(q, tt) for tt in
+                                            targets.values()])[0]
+                         for _ in range(5)])
+    eager_ms = np.mean([time_host(lambda: [solver.eager(q, tt) for tt in
+                                           targets.values()])[0]
+                        for _ in range(2)])
+    one_ms = np.mean([time_host(lambda: solver(q, t))[0] for _ in range(5)])
+    out = {"phase": "ik_graph", "envs": int(q0.shape[0]),
+           "iters": 32, "first_call_ms": first_ms,
+           "captures": solver.graph.captures,
+           "inputs": [name for name, _, _ in inputs],
+           "bitwise_vs_eager": bitwise,
+           "first_result_kept_after_next_replay": kept,
+           "mutant_stale_inputs_bitwise": mutant,
+           "replay_ms_both_solves": float(replay_ms),
+           "eager_ms_both_solves": float(eager_ms),
+           "replay_ms_one_solve": float(one_ms)}
+    emit(out)
+    if not all(bitwise):
+        fail(f"the graphed IK solve is not the eager solve: {out}")
+    if not kept:
+        fail("a result of the graphed IK solve changed at the next replay")
+    if all(mutant):
+        fail("a replay that copies no new inputs passes the ik_graph gate")
+    if solver.graph.captures != 1:
+        fail(f"one input shape took {solver.graph.captures} captures")
+    return out
 
 
 def ik_sync_free(ev, actions):
     """The flagship's two IK solves (the mimic's, toward the action pose,
-    and compose_dyn's, toward the current eef) under
+    and compose_dyn's, toward the current eef), graphed and eager, under
     ``torch.cuda.set_sync_debug_mode("error")``: fails if either
     synchronises the host with the card. Then one ``step`` and ``render``
     under "warn", each synchronising call counted by the innermost line of
@@ -1228,25 +1334,22 @@ def ik_sync_free(ev, actions):
 
     import torch
 
-    from real2sim_eval_tpu_torch.utils import transforms as tf
-
     st = ev.state
-    B = actions.shape[0]
-    targets = {"mimic": tf.make_se3(actions[:, 3:12].reshape(B, 3, 3),
-                                    actions[:, :3]),
-               "compose_dyn": tf.make_se3(tf.quat_to_rot(
-                   st.grippers[:, 6:10]), st.grippers[:, :3])}
+    targets = ik_targets(ev, actions)
     for t in targets.values():                    # warm: allocations
         ev._ik(st.qpos7, t)
     sync()
     torch.cuda.set_sync_debug_mode("error")
     try:
         t0 = time.perf_counter()
+        # the graphed solve (copy in, replay, clone out) and the eager one
         for name, t in targets.items():
-            try:
-                ev._ik(st.qpos7, t)
-            except RuntimeError as e:
-                fail(f"ik_sync_free: the {name} IK solve synchronises: {e}")
+            for solve in (ev._ik, ev._ik.eager):
+                try:
+                    solve(st.qpos7, t)
+                except RuntimeError as e:
+                    fail(f"ik_sync_free: the {name} IK solve synchronises: "
+                         f"{e}")
         enqueue_ms = (time.perf_counter() - t0) * 1e3
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -1277,7 +1380,7 @@ def ik_sync_free(ev, actions):
             torch.cuda.set_sync_debug_mode("default")
             ev.state = st
     emit({"phase": "ik_sync_free", "ik_solves": list(targets),
-          "error_mode_ok": True, "ik_enqueue_ms": enqueue_ms,
+          "error_mode_ok": True, "graphed_and_eager_enqueue_ms": enqueue_ms,
           "ik_ms": ik_ms, "step_render_syncs": sum(sites.values()),
           "step_render_sync_sites": dict(sorted(
               sites.items(), key=lambda kv: -kv[1]))})
@@ -1595,6 +1698,7 @@ def device_profile(fn) -> dict:
 
     return {"profiled_wall_ms": wall_ms,
             "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "kernels_launched": sum(e.count for e in kernels),
             "top_kernels_ms": top(kernels, 8), "top_ops_ms": top(ops, 10)}
 
 
@@ -1716,7 +1820,8 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     # the merged order of K6 is K2's: K2 over the same merge, bitwise
     rgb_2, dep_2 = tk.rasterize_tiles_sparse(merged, inst, tile, m_st, m_en,
                                              rgb_c, dep_c, ntx, nty, bg)
-    w6 = pixel_pair_walks(merged, m_st, m_en, tile, ntx)
+    w6 = pixel_pair_walks(merged, m_st, m_en, tile, ntx, blocks=True)
+    k6_depth_diff = int((dep_k != dep_p).sum())
     rows = int((se - ss).sum() + (de - ds).sum())
     k6_bound, k6_by = sparse_bound_ms(rows, 6, int(inst.numel()),
                                       w6["reaching"])
@@ -1735,6 +1840,10 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
                                    "merged_pairs": rows,
                                    "pixel_pair_blends": w6["walks"],
                                    "reaching_blends": w6["reaching"],
+                                   "evaluations": {
+                                       "tile_level": w6["tile_evals"],
+                                       "block_level": w6["block_evals"]},
+                                   "depth_pixels_differing": k6_depth_diff,
                                    "differing_pixels_vs_k2": k6_vs_k2}
     inputs["spring_mass_step"] = {
         "envs": int(state.x.shape[0]), "particles": int(state.x.shape[1]),
@@ -1752,6 +1861,9 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     if k2["max_abs_err"] or k2_depth_diff:
         fail(f"K2 is not bitwise its plain version at the flagship's "
              f"shapes: {k2}, {k2_depth_diff} depth pixels differ")
+    if k6["max_abs_err"] or k6_depth_diff:
+        fail(f"K6 is not bitwise its plain version at the flagship's "
+             f"shapes: {k6}, {k6_depth_diff} depth pixels differ")
     for k in kernels[1:]:
         if (k["max_abs_err"] > RGB_TOL
                 or flips[k["name"]] > limits[k["name"]]):
@@ -2100,13 +2212,41 @@ def measure_refine_kernels(launches, k7_args, k8_args):
                              "block_level": w7["block_evals"]},
           "k8_vs_plain_max_rel": k8_rel, "k8_plain_tol": K8_PLAIN_TOL,
           "k7_max_abs_t": float((t_k - t_p).abs().max()),
-          "k7_vs_k1_differing_pixels": k7_vs_k1})
+          "k7_vs_k1_differing_pixels": k7_vs_k1,
+          "heaviest_tiles": heaviest_tiles(k7_args, k8_args)})
     if (k7["max_abs_err"] > RGB_TOL or float((t_k - t_p).abs().max()) > T_TOL
             or k7_vs_k1):
         fail(f"K7 disagrees at the refinement's shapes: {k7}")
     if k8_rel > K8_PLAIN_TOL:
         fail(f"K8 disagrees at the refinement's shapes: {k8_rel}")
     return [k7, k8]
+
+
+def heaviest_tiles(k7_args, k8_args) -> dict:
+    """Whether the longest tiles bound K7 and K8: each timed (CUDA events,
+    mean of 10) on the 1 % of tiles with the most pairs alone and on all
+    the other tiles alone (a tile left out gets an empty range). Where the
+    heaviest tiles alone take most of the whole launch's time, one CTA's
+    walk, not the total work, sets it."""
+    import torch
+
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    pairs, starts, ends, n_tx, n_ty, bg = k7_args
+    counts = (ends - starts).reshape(-1)
+    top = torch.topk(counts, max(1, counts.numel() // 100)).indices
+    heavy = torch.zeros_like(counts, dtype=torch.bool)
+    heavy[top] = True
+    out = {"tiles": int(top.numel()), "pairs_max": int(counts.max()),
+           "pairs_mean": float(counts.float().mean()),
+           "pairs_heaviest_share": float(counts[top].sum() / counts.sum())}
+    for name, keep in (("heaviest", heavy), ("rest", ~heavy)):
+        e = torch.where(keep.reshape(starts.shape), ends, starts)
+        out[f"k7_ms_{name}"] = time_cuda(lambda: tk.rasterize_tiles_batch_t(
+            pairs, starts, e, n_tx, n_ty, bg), 10)
+        out[f"k8_ms_{name}"] = time_cuda(lambda: tk.composite_backward(
+            k8_args[0], starts, e, *k8_args[3:]), 10)
+    return out
 
 
 def start_ptxas() -> dict:
@@ -2177,7 +2317,7 @@ def main() -> int:
     check_k3_pusher()
     check_reference()
     # every host-timed phase first, the device profiles last
-    ev, actions, launches, flagship = run_flagship()
+    ev, actions, launches, flagship, ik = run_flagship()
     ik_sync_free(ev, actions)
     ev_s, launches_s = run_flagship_stream(ev, actions)
     ev_f, launches_f, flagship_f = run_flagship_fine(ev, actions)
@@ -2190,7 +2330,11 @@ def main() -> int:
     del ev_s
     launches_r, k7_args, k8_args, refine_five, iter_ms = run_refinement()
     kernels += measure_refine_kernels(launches_r, k7_args, k8_args)
+    ik_target = ik_targets(ev, actions)["mimic"]
     device_profiles([
+        # one graphed IK solve (copy in, replay, clone out)
+        ("ik_replay", lambda: ev._ik(ev.state.qpos7, ik_target), 1,
+         ik["replay_ms_one_solve"]),
         ("flagship", lambda: (ev.step(actions), ev.render()), 1,
          flagship["total_ms"]),
         ("flagship_fine", lambda: (ev_f.step(actions), ev_f.render()), 1,

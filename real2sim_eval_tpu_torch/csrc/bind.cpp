@@ -110,12 +110,16 @@ void tile_composite_t(torch::Tensor pairs, torch::Tensor starts,
 }
 
 void tile_backward(torch::Tensor pairs, torch::Tensor starts,
-                   torch::Tensor ends, int64_t n_tiles_x, int64_t n_tiles_y,
+                   torch::Tensor ends, torch::Tensor order,
+                   int64_t n_tiles_x, int64_t n_tiles_y,
                    torch::Tensor dl_rgb, torch::Tensor dl_depth,
                    torch::Tensor c_fin, torch::Tensor t_fin, double bg0,
                    double bg1, double bg2, torch::Tensor grads) {
   const int64_t n_inst =
       check_ranges(pairs, starts, ends, n_tiles_x, n_tiles_y);
+  check(order, "order", at::kInt);
+  TORCH_CHECK(order.numel() == starts.numel(),
+              "order must list every (instance, tile)");
   check_table(grads, "grads");
   TORCH_CHECK(grads.size(1) == pairs.size(1), "grads must be shaped as pairs");
   check_frames(dl_rgb, dl_depth, n_inst, n_tiles_x, n_tiles_y);
@@ -123,11 +127,11 @@ void tile_backward(torch::Tensor pairs, torch::Tensor starts,
   const c10::cuda::CUDAGuard guard(pairs.device());
   C10_CUDA_CHECK(tile_backward_launch(
       pairs.data_ptr<float>(), pairs.size(1), starts.data_ptr<int>(),
-      ends.data_ptr<int>(), (int)n_inst, (int)n_tiles_x, (int)n_tiles_y,
-      dl_rgb.data_ptr<float>(), dl_depth.data_ptr<float>(),
-      c_fin.data_ptr<float>(), t_fin.data_ptr<float>(), (float)bg0,
-      (float)bg1, (float)bg2, grads.data_ptr<float>(),
-      c10::cuda::getCurrentCUDAStream()));
+      ends.data_ptr<int>(), order.data_ptr<int>(), (int)n_inst,
+      (int)n_tiles_x, (int)n_tiles_y, dl_rgb.data_ptr<float>(),
+      dl_depth.data_ptr<float>(), c_fin.data_ptr<float>(),
+      t_fin.data_ptr<float>(), (float)bg0, (float)bg1, (float)bg2,
+      grads.data_ptr<float>(), c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

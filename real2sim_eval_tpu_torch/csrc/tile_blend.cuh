@@ -3,20 +3,18 @@
 // compositors K1 and K7 (tile_composite.cu), K2 (tile_sparse.cu) and K6
 // (tile_sparse_merge.cu), and the fine (8x16) compositors K4
 // (fine_composite.cu) and K5 (fine_sparse.cu), so they cannot drift apart.
-// The backward K8 (tile_backward.cu) repeats the blend's tests in the same
-// order to recompute T.
+// The backward K8 (tile_backward.cu) walks the wide tile as K1 does and
+// repeats the blend's tests in the same order to recompute T.
 //
-// Layout: one CTA of NT threads per tile of width TW, each thread owning
-// the pixels of one column at rows row0, row0 + NT/TW, ... (row0 =
-// tid / TW), so every row store is TW consecutive floats. The wide tile
-// takes 256 threads with 4 pixels each (rows r, r+2, r+4, r+6), the fine
-// tile 128 threads with one pixel each. A batch of up to NT pairs sits in
-// shared memory as structure-of-arrays, sh[attr][pair], attrs [x, y, conic
-// a/b/c, opacity, r, g, b, depth]. K1, K7 and K2 use WarpPixels instead
-// (each warp of the wide tile's CTA owns one 8x16 block) and
-// blend_range_culled, which skips the pairs that provably cannot reach a
-// warp's block. Every
-// compositor evaluates a (pixel, pair) through blend_pixel, so their
+// Layout of the fine tile (PixelsT): one CTA of 128 threads, one pixel
+// each. A batch of up to NT pairs sits in shared memory as
+// structure-of-arrays, sh[attr][pair], attrs [x, y, conic a/b/c, opacity,
+// r, g, b, depth]. The wide tile (WarpPixels): one CTA of 256 threads, each
+// warp owning one 8x16 block, 4 pixels a lane; walk_culled feeds it
+// batches from a RangeSource (a contiguous pair range: K1, K7, K2, K8) or a
+// MergeSource (the depth merge of a static and a dynamic segment: K6) and
+// skips, per warp, the pairs that provably cannot reach the warp's block.
+// Every compositor evaluates a (pixel, pair) through blend_pixel, so their
 // per-pixel sequences of operations are one.
 //
 // Numerics: build without --use_fast_math and with --fmad=false, and use
@@ -35,7 +33,6 @@ constexpr int kTileH = 8;
 constexpr int kTileW = 128;
 constexpr int kThreads = 256;
 constexpr int kBatch = 256;
-constexpr int kPixPerThread = kTileH * kTileW / kThreads;   // 4
 constexpr int kFineW = 16;
 constexpr int kFineThreads = 128;                           // 1 pixel each
 constexpr int kAttr = 10;
@@ -59,10 +56,8 @@ struct PixelsT {
   bool done[kPix];
 };
 
-using Pixels = PixelsT<kTileW, kThreads>;          // K6, K8
 using FinePixels = PixelsT<kFineW, kFineThreads>;  // K4, K5
-static_assert(Pixels::kPix == kPixPerThread && kBatch == kThreads,
-              "the wide tile's layout");
+static_assert(kBatch == kThreads, "one thread loads each slot of a batch");
 
 // Keeps a parameter out of template argument deduction: the tile shape is
 // deduced from the pixels alone, and the shared batch converts as usual.
@@ -175,7 +170,7 @@ __device__ __forceinline__ void blend_range(
 }
 
 // ---------------------------------------------------------------------------
-// K1, K7 and K2: one 8x16 block of the 8x128 tile per warp
+// K1, K7, K2, K6 and K8: one 8x16 block of the 8x128 tile per warp
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockW = 16;
@@ -282,59 +277,168 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Blend the contiguous pair range [start, end) of a (10, n_pairs) table
-// into the warp blocks' pixels: batches of kBatch pairs through two shared
-// buffers, batch n + 1 loading by cp.async while batch n blends. After a
-// batch lands each warp tests it against its block (lane l tests pairs l,
-// l + 32, ...; __ballot_sync gathers 8 masks) and blends only the kept
-// pairs, in ascending order; a warp whose 128 pixels are all done skips
-// both. The CTA stops once every pixel is done, as the TPU kernel's
-// while_loop does.
-__device__ __forceinline__ void blend_range_culled(
-    const float* __restrict__ pairs, long long n_pairs, int start, int end,
-    float (*sh)[kAttr][kBatch], WarpPixels& p, float bx0, float by0) {
-  const int tid = threadIdx.x, lane = tid % 32;
-  const auto load = [&](int buf, int base) {
-    const int n = min(kBatch, end - base);
+// The batches a culled walk takes: each load() issues the cp.async copies
+// of the next batch of up to kBatch pairs, in order, into one shared buffer
+// (sh[attr][slot]), commits them as one group and returns the batch's
+// size, 0 once the stream is spent. Every thread of the CTA calls load()
+// together.
+//
+// RangeSource: the contiguous range [next, end) of a (10, n_pairs) table
+// (K1, K7, K2, K8).
+struct RangeSource {
+  const float* __restrict__ pairs;
+  long long n_pairs;
+  int next, end;
+
+  __device__ __forceinline__ int load(float (*dst)[kBatch]) {
+    const int tid = threadIdx.x;
+    const int n = max(0, min(kBatch, end - next));
     if (tid < n) {
 #pragma unroll
       for (int a = 0; a < kAttr; ++a)
-        cp_async4(&sh[buf][a][tid],
-                  pairs + (long long)a * n_pairs + base + tid);
+        cp_async4(&dst[a][tid], pairs + (long long)a * n_pairs + next + tid);
     }
     cp_async_commit();
-  };
-  if (start < end) load(0, start);
-  int buf = 0;
-  for (int base = start; base < end; base += kBatch, buf ^= 1) {
+    next += n;
+    return n;
+  }
+};
+
+// MergeSource: the depth merge of the static segment [s0, s0 + ls) of
+// data_s and the dynamic segment [d0, d0 + ld) of data_d (both (10, n)
+// tables, each segment depth-sorted, the depth in lane kDepthAttr), a
+// dynamic pair first on equal depth: dynamic pair j goes before static pair
+// i iff depth_d[j] <= depth_s[i] (K6; renderer/tile_kernel.py
+// merge_segments builds the same order by a stable sort). (i, j) is the
+// co-rank of the next batch's first merged pair: i statics and j dynamics
+// come before it. A batch's merged pairs lie in the windows [i, i + kBatch)
+// and [j, j + kBatch) of the two segments; their depths are staged in
+// shared memory (win), thread t finds the co-rank of merged pair t by a
+// binary search over the windows (at most 9 steps) and copies that pair's
+// attributes from whichever table holds it; the count of statics taken
+// gives the next batch's co-rank.
+struct MergeSource {
+  const float* __restrict__ data_s;
+  long long n_s;
+  const float* __restrict__ data_d;
+  long long n_d;
+  int s0, ls, d0, ld;
+  int i, j;
+  float (*win)[kBatch];                     // [2][kBatch], shared
+
+  __device__ __forceinline__ int load(float (*dst)[kBatch]) {
+    const int tid = threadIdx.x;
+    const int ns = min(kBatch, ls - i), nd = min(kBatch, ld - j);
+    const int n = min(kBatch, ns + nd);
+    // the previous load's searches ended at its __syncthreads_count, so
+    // the windows are free
+    if (tid < ns)
+      win[0][tid] = data_s[(long long)kDepthAttr * n_s + s0 + i + tid];
+    if (tid < nd)
+      win[1][tid] = data_d[(long long)kDepthAttr * n_d + d0 + j + tid];
+    __syncthreads();
+    bool take_s = false;
+    if (tid < n) {
+      // co-rank of merged pair tid: the smallest a such that static a does
+      // not precede dynamic tid - a - 1; a statics and tid - a dynamics of
+      // the windows come first
+      int lo = max(0, tid - nd), hi = min(tid, ns);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (win[0][mid] < win[1][tid - mid - 1])
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      const int a = lo, b = tid - lo;
+      take_s = b >= nd || (a < ns && win[0][a] < win[1][b]);
+      const float* src = take_s ? data_s + s0 + i + a : data_d + d0 + j + b;
+      const long long stride = take_s ? n_s : n_d;
+#pragma unroll
+      for (int k = 0; k < kAttr; ++k)
+        cp_async4(&dst[k][tid], src + (long long)k * stride);
+    }
+    cp_async_commit();
+    const int taken_s = __syncthreads_count(take_s);
+    i += taken_s;
+    j += n - taken_s;
+    return n;
+  }
+};
+
+// Walk the pairs of ``src`` over the warp blocks' pixels: batches of kBatch
+// pairs through two shared buffers, batch n + 1 loading by cp.async while
+// batch n is walked. After a batch lands each warp tests it against its
+// block (lane l tests pairs l, l + 32, ...; __ballot_sync gathers 8 masks)
+// and calls pair(batch, slot) for the kept pairs only, in ascending order;
+// a warp whose 128 pixels are all done skips both. Then every thread calls
+// end_batch(batch size, its warp's masks), the masks all 0 for a warp that
+// skipped. The CTA stops once every pixel is done, as the TPU kernel's
+// while_loop does. p is read for liveness only; pair() updates it.
+template <typename Source, typename Pair, typename EndBatch>
+__device__ __forceinline__ void walk_culled(Source& src,
+                                            float (*sh)[kAttr][kBatch],
+                                            const WarpPixels& p, float bx0,
+                                            float by0, Pair&& pair,
+                                            EndBatch&& end_batch) {
+  const int lane = threadIdx.x % 32;
+  int n = src.load(sh[0]);
+  for (int buf = 0; n > 0; buf ^= 1) {
     // also the barrier that retires the previous batch's shared reads,
     // whose buffer the next load refills
     if (__syncthreads_count(any_live(p)) == 0) break;
-    if (base + kBatch < end) {
-      load(buf ^ 1, base + kBatch);
+    const int n_next = src.load(sh[buf ^ 1]);
+    if (n_next > 0)
       cp_async_wait<1>();
-    } else {
+    else
       cp_async_wait<0>();
-    }
     __syncthreads();
-    if (!__any_sync(0xffffffffu, any_live(p))) continue;
-    const float (*b)[kBatch] = sh[buf];
-    const int n = min(kBatch, end - base);
     unsigned keep[kBatch / 32];
+    if (__any_sync(0xffffffffu, any_live(p))) {
+      const float (*b)[kBatch] = sh[buf];
 #pragma unroll
-    for (int k = 0; k < kBatch / 32; ++k) {
-      const int j = lane + 32 * k;
-      keep[k] = __ballot_sync(
-          0xffffffffu, j < n && block_keep(b[0][j], b[1][j], b[2][j], b[3][j],
-                                           b[4][j], b[5][j], bx0, by0));
-    }
+      for (int k = 0; k < kBatch / 32; ++k) {
+        const int j = lane + 32 * k;
+        keep[k] = __ballot_sync(
+            0xffffffffu, j < n && block_keep(b[0][j], b[1][j], b[2][j],
+                                             b[3][j], b[4][j], b[5][j], bx0,
+                                             by0));
+      }
 #pragma unroll
-    for (int k = 0; k < kBatch / 32; ++k) {
-      for (unsigned m = keep[k]; m; m &= m - 1)
-        blend_pair(b, 32 * k + __ffs(m) - 1, p);
+      for (int k = 0; k < kBatch / 32; ++k) {
+        for (unsigned m = keep[k]; m; m &= m - 1)
+          pair(b, 32 * k + __ffs(m) - 1);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kBatch / 32; ++k) keep[k] = 0u;
     }
+    end_batch(n, keep);
+    n = n_next;
   }
   cp_async_wait<0>();   // no copy may land after the CTA has left
+}
+
+// The forward walk of K1, K7, K2 and K6: blend the kept pairs of ``src``
+// into p, in order.
+template <typename Source>
+__device__ __forceinline__ void blend_culled(Source& src,
+                                             float (*sh)[kAttr][kBatch],
+                                             WarpPixels& p, float bx0,
+                                             float by0) {
+  walk_culled(
+      src, sh, p, bx0, by0,
+      [&](const float (*b)[kBatch], int j) { blend_pair(b, j, p); },
+      [](int, const unsigned*) {});
+}
+
+// blend_culled over the contiguous pair range [start, end) of a (10,
+// n_pairs) table.
+__device__ __forceinline__ void blend_range_culled(
+    const float* __restrict__ pairs, long long n_pairs, int start, int end,
+    float (*sh)[kAttr][kBatch], WarpPixels& p, float bx0, float by0) {
+  RangeSource src{pairs, n_pairs, start, end};
+  blend_culled(src, sh, p, bx0, by0);
 }
 
 // out = C + T * bg and the median depth, into instance inst's frame of
@@ -365,7 +469,7 @@ __device__ __forceinline__ void store_pixels(const PixelsT<TW, NT>& p,
   }
 }
 
-// store_pixels for the warp blocks of K1, K7 and K2.
+// store_pixels for the warp blocks of K1, K7, K2 and K6.
 __device__ __forceinline__ void store_pixels(const WarpPixels& p, int inst,
                                              int tx, int ty, int h_pad,
                                              int w_pad, float bg0, float bg1,

@@ -44,7 +44,8 @@ namespace {
 
 using namespace tile_blend;
 
-__global__ void __launch_bounds__(kThreads)
+// at most 64 registers: four CTAs an SM
+__global__ void __launch_bounds__(kThreads, 4)
 tile_composite_kernel(const float* __restrict__ pairs, long long n_pairs,
                       const int* __restrict__ starts,
                       const int* __restrict__ ends, int n_tiles_x,

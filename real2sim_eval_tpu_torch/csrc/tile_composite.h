@@ -30,12 +30,15 @@ cudaError_t tile_composite_t_launch(const float* pairs, long long n_pairs,
 
 // K8 (tile_backward.cu): per-pair gradients of K7's rgb and depth. dl_rgb
 // and c_fin (the bg-free colour rgb - t_fin * bg) are shaped as rgb,
-// dl_depth and t_fin as depth; grads (10, n_pairs) f32 in the pair table's
-// lane order, zeroed by the caller: the kernel writes the pairs each tile
-// reaches before its pixels are all frozen.
+// dl_depth and t_fin as depth; order: a permutation of the n_inst * n_tiles
+// (instance, tile) indices, the order in which CTAs take them; grads (10,
+// n_pairs) f32 in the pair table's lane order, zeroed by the caller: the
+// kernel writes the pairs each tile reaches before its pixels are all
+// frozen.
 cudaError_t tile_backward_launch(const float* pairs, long long n_pairs,
                                  const int* starts, const int* ends,
-                                 int n_inst, int n_tiles_x, int n_tiles_y,
+                                 const int* order, int n_inst,
+                                 int n_tiles_x, int n_tiles_y,
                                  const float* dl_rgb, const float* dl_depth,
                                  const float* c_fin, const float* t_fin,
                                  float bg0, float bg1, float bg2,

@@ -34,7 +34,8 @@ namespace {
 
 using namespace tile_blend;
 
-__global__ void __launch_bounds__(kThreads)
+// at most 64 registers: four CTAs an SM
+__global__ void __launch_bounds__(kThreads, 4)
 tile_sparse_kernel(const float* __restrict__ pairs, long long n_pairs,
                    const int* __restrict__ inst_ids,
                    const int* __restrict__ tile_ids,

@@ -5,23 +5,30 @@
 // tile_kernel.py: rasterize_tiles_sparse_merge, _kernel_sparse_merge and
 // _composite_merge_scoped).
 //
-// Design: one CTA per entry of the flat dirty (instance, tile) list. Its
-// inputs are two depth-sorted segments: [s_start, s_end) of the frozen
-// static table of all fixed cameras, shared by every env and already
-// truncated at the static-only saturation point, and [d_start, d_end) of
-// this step's dynamic table. Both tables are structure-of-arrays (10, P)
-// f32 with the exact view depth in lane 9 (the port never packs payloads),
-// so no separate depth plane is needed. The merged order puts dynamic pair
-// j before static pair i iff depth_d[j] <= depth_s[i] (the TPU kernel's
-// `d <= s`): the full pipeline's stable depth sort of the [dynamic; static]
-// scene. For each batch of up to 256 merged pairs, thread t finds its
-// co-rank (i, j), i + j = base + t, by a binary search over the two
-// segments (merge path), stages that pair's 10 attributes in shared memory,
-// and the CTA blends the batch with K1's body (tile_blend.cuh). Early exit
-// and the write into the cached frames are K2's.
+// Design: one CTA of 256 threads per entry of the flat dirty (instance,
+// tile) list. Its inputs are two depth-sorted segments: [s_start, s_end) of
+// the frozen static table of all fixed cameras, shared by every env and
+// already truncated at the static-only saturation point, and [d_start,
+// d_end) of this step's dynamic table. Both tables are structure-of-arrays
+// (10, P) f32 with the exact view depth in lane 9 (the port never packs
+// payloads), so no separate depth plane is needed. The merged order puts
+// dynamic pair j before static pair i iff depth_d[j] <= depth_s[i] (the TPU
+// kernel's `d <= s`): the full pipeline's stable depth sort of the
+// [dynamic; static] scene. The walk is K2's (tile_blend.cuh walk_culled:
+// warp w owns the 8x16 block of columns [16 w, 16 w + 16), batches of 256
+// merged pairs through two shared buffers by cp.async, each warp blending
+// only the pairs of a landed batch that pass the exact block cull); only
+// the source of the batches differs (tile_blend.cuh MergeSource): a batch
+// starts at the co-rank where the previous one ended, stages the two depth
+// windows it can draw from in shared memory, and each thread finds its
+// merged pair's co-rank by a binary search there and copies that pair's 10
+// attributes from whichever table holds it. So the frames are bitwise K2's
+// on the merged table, and its plain version's. Early exit and the write
+// into the cached frames are K2's.
 //
-// Bound: as K1, operations; the binary searches add ~2 log2(segment)
-// depth loads per merged pair, from L1/L2.
+// Bound: as K2, the pair tables' bytes; the merge adds two depth loads per
+// merged pair (the windows) and a search of at most 9 steps in shared
+// memory.
 
 #include <cuda_runtime.h>
 
@@ -32,7 +39,8 @@ namespace {
 
 using namespace tile_blend;
 
-__global__ void __launch_bounds__(kThreads)
+// at most 64 registers: four CTAs an SM
+__global__ void __launch_bounds__(kThreads, 4)
 tile_sparse_merge_kernel(const float* __restrict__ data_s, long long n_s,
                          const float* __restrict__ data_d, long long n_d,
                          const int* __restrict__ inst_ids,
@@ -44,7 +52,8 @@ tile_sparse_merge_kernel(const float* __restrict__ data_s, long long n_s,
                          int n_tiles_x, int n_tiles, int h_pad, int w_pad,
                          float bg0, float bg1, float bg2,
                          float* __restrict__ rgb, float* __restrict__ depth) {
-  __shared__ float sh[kAttr][kBatch];
+  __shared__ float sh[2][kAttr][kBatch];
+  __shared__ float win[2][kBatch];
 
   const int k = blockIdx.x;                 // dirty-list entry
   const int inst = inst_ids[k];
@@ -52,44 +61,16 @@ tile_sparse_merge_kernel(const float* __restrict__ data_s, long long n_s,
   if (inst < 0 || inst >= n_inst || t < 0 || t >= n_tiles) return;
   const int ty = t / n_tiles_x;
   const int tx = t - ty * n_tiles_x;
-  const int tid = threadIdx.x;
 
-  const int s0 = s_starts[k];
-  const int ls = max(s_ends[k] - s0, 0);
-  const int d0 = d_starts[k];
-  const int ld = max(d_ends[k] - d0, 0);
-  const int total = ls + ld;
-  const float* s_dep = data_s + (long long)kDepthAttr * n_s + s0;
-  const float* d_dep = data_d + (long long)kDepthAttr * n_d + d0;
-
-  Pixels p;
+  const int s0 = s_starts[k], d0 = d_starts[k];
+  MergeSource src{data_s, n_s, data_d, n_d,
+                  s0, max(s_ends[k] - s0, 0), d0, max(d_ends[k] - d0, 0),
+                  0, 0, win};
+  WarpPixels p;
   init_pixels(p, tx, ty);
-  for (int base = 0; base < total; base += kBatch) {
-    // also the barrier that retires the previous batch's shared reads
-    if (__syncthreads_count(any_live(p)) == 0) break;
-    const int n = min(kBatch, total - base);
-    if (tid < n) {
-      const int q = base + tid;             // merged position
-      // co-rank: the smallest i such that static pair i does not precede
-      // dynamic pair q - i - 1; i statics and q - i dynamics come first
-      int lo = max(0, q - ld), hi = min(q, ls);
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (s_dep[mid] < d_dep[q - mid - 1])
-          lo = mid + 1;
-        else
-          hi = mid;
-      }
-      const int i = lo, j = q - lo;
-      const bool take_s = j >= ld || (i < ls && s_dep[i] < d_dep[j]);
-      const float* src = take_s ? data_s + s0 + i : data_d + d0 + j;
-      const long long stride = take_s ? n_s : n_d;
-#pragma unroll
-      for (int a = 0; a < kAttr; ++a) sh[a][tid] = src[(long long)a * stride];
-    }
-    __syncthreads();
-    blend_batch(sh, n, p);
-  }
+  blend_culled(src, sh, p,
+               (float)(tx * kTileW + (threadIdx.x / 32) * kBlockW),
+               (float)(ty * kTileH));
   store_pixels(p, inst, tx, ty, h_pad, w_pad, bg0, bg1, bg2, rgb, depth);
 }
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import transforms as tf
+from ..utils.graph import Graphed
 from .chain import KinematicChain, _prismatic, _rot_about_axis
 
 
@@ -186,7 +187,13 @@ def make_ik_fn(chain: KinematicChain, eef_link, n_active: int | None = None,
                iters: int = 32, damping: float = 1e-4,
                step_scale: float = 1.0, pos_tol: float = 0.01,
                rot_tol: float = 0.01):
-    """Build ``solve(q_init (E, n), target (E, 4, 4)) -> qpos (E, n)``."""
+    """Build ``solve(q_init (E, n), target (E, 4, 4)) -> qpos (E, n)``.
+
+    On a CUDA tensor the solve (the Gauss-Newton iterations and the
+    verify-and-fallback) runs as one CUDA graph, captured once per input
+    shape (``utils/graph.py``) and bitwise the eager solve; on a CPU tensor
+    it runs eagerly. The returned function keeps the eager solve as
+    ``.eager`` and the graphs as ``.graph``."""
     if isinstance(eef_link, str):
         eef_link = chain.link_index(eef_link)
     n_active = chain.n_dof if n_active is None else n_active
@@ -215,4 +222,13 @@ def make_ik_fn(chain: KinematicChain, eef_link, n_active: int | None = None,
         ok = (pos_diff <= pos_tol) & (rot_diff <= rot_tol)
         return torch.where(ok[:, None], q, q_init)
 
-    return solve
+    graph = Graphed(solve)
+
+    def solver(q_init: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        if q_init.device.type == "cuda":
+            return graph(q_init, target)
+        return solve(q_init, target)
+
+    solver.eager = solve
+    solver.graph = graph
+    return solver

@@ -348,11 +348,14 @@ def composite_backward(pairs, tile_starts, tile_ends, dl_rgb, dl_depth,
         return composite_backward_plain(pairs, tile_starts, tile_ends,
                                         dl_rgb, dl_depth, c_fin, t_fin, bg)
     grads = torch.zeros_like(pairs)
+    # the CTAs take the tiles with the most pairs first
+    order = torch.argsort((tile_ends - tile_starts).reshape(-1),
+                          descending=True, stable=True).to(torch.int32)
     ext.load().tile_backward(pairs.contiguous(), tile_starts.contiguous(),
-                             tile_ends.contiguous(), n_tiles_x, n_tiles_y,
-                             dl_rgb.contiguous(), dl_depth.contiguous(),
-                             c_fin.contiguous(), t_fin.contiguous(), bg[0],
-                             bg[1], bg[2], grads)
+                             tile_ends.contiguous(), order, n_tiles_x,
+                             n_tiles_y, dl_rgb.contiguous(),
+                             dl_depth.contiguous(), c_fin.contiguous(),
+                             t_fin.contiguous(), bg[0], bg[1], bg[2], grads)
     ext.LAUNCHES["tile_backward"] += 1
     return grads
 

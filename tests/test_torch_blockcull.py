@@ -265,19 +265,11 @@ def culled_sparse(pairs, inst_ids, tile_ids, starts, ends, rgb_cache,
     return out, kept.shape[1]
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_culled_dirty_tiles_are_bitwise_plain(seed, monkeypatch):
-    """K2's block cull on the CPU: the small scene split into 260 static
-    and 40 dynamic splats (two envs, the dynamic ones a cluster that moves
-    between them) rendered incrementally (sort merge). The block-culled plain
-    blend over the step's dirty-tile list is bitwise
-    ``composite_sparse_plain`` (K2's plain version) on the same inputs, and
-    the incremental frames it gives are within the render tests' tolerance
-    of the JAX package's incremental render (its ``rasterize_tiles_sparse``
-    in interpret mode, as its own tests run it)."""
-    from real2sim_eval_tpu.renderer import incremental as jinc
-    from real2sim_eval_tpu.renderer.camera import setup_camera as j_setup
-    from real2sim_eval_tpu_torch.renderer import RasterConfig
+def split_scene(seed: int):
+    """scene(seed) split into 260 static and 40 dynamic splats (two envs,
+    the dynamic ones a cluster that moves between them), in numpy, the
+    camera's intrinsics, and the port's incremental-render inputs: the
+    fixed camera with its static raster, and the dynamic splats."""
     from real2sim_eval_tpu_torch.renderer import incremental as tinc
     from real2sim_eval_tpu_torch.renderer.camera import setup_camera
 
@@ -298,6 +290,24 @@ def test_culled_dirty_tiles_are_bitwise_plain(seed, monkeypatch):
         {key: torch.as_tensor(v) for key, v in static.items()}, 0, BG)
     cams = [(cam, st, torch.as_tensor(np.asarray(w2c)))]
     dyn_t = {key: torch.as_tensor(v) for key, v in dyn.items()}
+    return static, dyn, k, cams, dyn_t
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_culled_dirty_tiles_are_bitwise_plain(seed, monkeypatch):
+    """K2's block cull on the CPU: ``split_scene`` rendered incrementally
+    (sort merge). The block-culled plain blend over the step's dirty-tile
+    list is bitwise ``composite_sparse_plain`` (K2's plain version) on the
+    same inputs, and the incremental frames it gives are within the render
+    tests' tolerance of the JAX package's incremental render (its
+    ``rasterize_tiles_sparse`` in interpret mode, as its own tests run
+    it)."""
+    from real2sim_eval_tpu.renderer import incremental as jinc
+    from real2sim_eval_tpu.renderer.camera import setup_camera as j_setup
+    from real2sim_eval_tpu_torch.renderer import RasterConfig
+    from real2sim_eval_tpu_torch.renderer import incremental as tinc
+
+    static, dyn, k, cams, dyn_t = split_scene(seed)
     seen = {}
     plain = tinc.rasterize_tiles_sparse
 
@@ -339,3 +349,130 @@ def test_culled_dirty_tiles_are_bitwise_plain(seed, monkeypatch):
     np.testing.assert_allclose(rgb_c.numpy(), np.asarray(rgb_j), atol=2e-3)
     flips = int((np.abs(dep_c.numpy() - np.asarray(dep_j)) > 1e-2).sum())
     assert flips <= max(5, int(2e-4 * dep_c.numel()))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_culled_merged_dirty_tiles_are_bitwise_plain(seed, monkeypatch):
+    """K6's walk on the CPU: ``split_scene`` rendered incrementally with
+    the stream merge. The block-culled plain blend over each dirty tile's
+    merged static and dynamic segments (the order of ``merge_segments``:
+    a dynamic pair first on equal depth) is bitwise
+    ``composite_sparse_merge_plain`` (K6's plain version) on the same
+    inputs, and the frames it gives are bitwise those of the plain stream
+    render and of the sort render."""
+    from real2sim_eval_tpu_torch.renderer import RasterConfig
+    from real2sim_eval_tpu_torch.renderer import incremental as tinc
+
+    _, _, _, cams, dyn_t = split_scene(seed)
+    seen = {}
+
+    def culled_merge(data_s, data_d, inst, tile, ss, se, ds, de, rgb_c,
+                     dep_c, n_tx, n_ty, bg):
+        seen["args"] = (data_s, data_d, inst, tile, ss, se, ds, de, rgb_c,
+                        dep_c, n_tx, n_ty, bg)
+        merged, m_st, m_en = tk.merge_segments(data_s, ss, se, data_d, ds,
+                                               de)
+        seen["rows"] = int((m_en - m_st).sum())
+        out, seen["kept"] = culled_sparse(merged, inst, tile, m_st, m_en,
+                                          rgb_c, dep_c, n_tx, n_ty, bg)
+        return out
+
+    stream = RasterConfig(merge_kernel="stream")
+    monkeypatch.setattr(tinc, "rasterize_tiles_sparse_merge", culled_merge)
+    rgb_c, dep_c, _ = tinc.render_incremental(cams, dyn_t, 0, stream, bg=BG)
+    monkeypatch.undo()
+    rgb_p, dep_p, _ = tinc.render_incremental(cams, dyn_t, 0, stream, bg=BG)
+    rgb_s, dep_s, _ = tinc.render_incremental(
+        cams, dyn_t, 0, RasterConfig(merge_kernel="sort"), bg=BG)
+    args = seen["args"]
+    n_dirty = int(args[2].numel())
+    assert 0 < n_dirty < 2 * N_TX * N_TY
+    # both streams feed the dirty tiles, and the cull cuts
+    assert int((args[5] - args[4]).sum()) and int((args[7] - args[6]).sum())
+    assert seen["kept"] < tk.TILE_W // tk.BLOCK_W * seen["rows"]
+    frames_c = culled_merge(*args)
+    frames_p = tk.composite_sparse_merge_plain(*args)
+    assert torch.equal(frames_c[0], frames_p[0])
+    assert torch.equal(frames_c[1], frames_p[1])
+    assert torch.equal(rgb_c, rgb_p) and torch.equal(dep_c, dep_p)
+    assert torch.equal(rgb_c, rgb_s) and torch.equal(dep_c, dep_s)
+
+
+# K8's per-pair table against its plain version: the same per-pixel
+# operations, each pair's sums over a tile's pixels in another order
+# (chip_smoke.py K8_PLAIN_TOL, of each lane's largest |gradient|)
+K8_PLAIN_TOL = 1e-4
+
+
+def kept_table(pairs, starts, ends, w: int):
+    """The pairs ``block_cull_keep`` keeps for block w of every tile, in
+    order: (table (10, P_w), starts, ends shaped as ``starts``, source
+    index of each row, source index of each dropped pair)."""
+    rows, k_st, k_en, off = [], [], [], 0
+    for g in range(starts.numel()):
+        t = g % (N_TX * N_TY)
+        tx, ty = t % N_TX, t // N_TX
+        idx = torch.arange(int(starts.reshape(-1)[g]),
+                           int(ends.reshape(-1)[g]))
+        keep = tk.block_cull_keep(
+            pairs[:, idx], torch.tensor(float(tx * tk.TILE_W
+                                              + w * tk.BLOCK_W)),
+            torch.tensor(float(ty * tk.TILE_H)))
+        rows.append((idx[keep], idx[~keep]))
+        k_st.append(off)
+        off += int(keep.sum())
+        k_en.append(off)
+    src = torch.cat([r[0] for r in rows])
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32).reshape(  # noqa: E731
+        starts.shape)
+    return (pairs[:, src], i32(k_st), i32(k_en), src,
+            torch.cat([r[1] for r in rows]))
+
+
+@pytest.mark.parametrize("case", ["random", "opaque"])
+def test_culled_backward_matches_plain(case):
+    """K8's walk on the CPU: per 8x16 block w, the plain backward
+    (``composite_backward_plain``) with the cotangents of the other blocks'
+    pixels zeroed gives exactly 0 for every pair the block cull drops, and
+    over the kept pairs alone gives bitwise the same rows; the blocks'
+    rows summed in block order (the kernel's per-warp sums, then the sum
+    over warps) are within K8_PLAIN_TOL of the whole-tile plain backward.
+    "opaque" stacks splats of opacity 0.95-1 that drive pixels through
+    the T < 1e-4 freeze and the 0.99 clamp."""
+    sc = scene(4 if case == "random" else 5)
+    if case == "opaque":
+        sc["opacities"] = np.random.default_rng(6).uniform(
+            0.95, 1.0, sc["opacities"].shape).astype(np.float32)
+    bins, _ = wide_bins(sc)
+    pairs, starts, ends = (bins["pair_attrs"], bins["tile_starts"],
+                           bins["tile_ends"])
+    rgb, _, t_fin = tk.composite_tiles_plain(pairs, starts, ends, N_TX, N_TY,
+                                             BG, with_t=True)
+    c_fin = rgb - t_fin[:, None] * torch.tensor(BG)[None, :, None, None]
+    rng = np.random.default_rng(8)
+    dl_rgb = torch.tensor(rng.normal(size=rgb.shape), dtype=torch.float32)
+    dl_dep = torch.tensor(rng.normal(size=t_fin.shape), dtype=torch.float32)
+    full = tk.composite_backward_plain(pairs, starts, ends, dl_rgb, dl_dep,
+                                       c_fin, t_fin, BG)
+    block = (torch.arange(W) % tk.TILE_W) // tk.BLOCK_W
+    total = torch.zeros_like(pairs)
+    dropped = 0
+    for w in range(N_BLOCKS):
+        on = (block == w).float()
+        dl_w = (dl_rgb * on, dl_dep * on)
+        unculled = tk.composite_backward_plain(pairs, starts, ends, *dl_w,
+                                               c_fin, t_fin, BG)
+        table, k_st, k_en, src, gone = kept_table(pairs, starts, ends, w)
+        culled = tk.composite_backward_plain(table, k_st, k_en, *dl_w, c_fin,
+                                             t_fin, BG)
+        assert torch.equal(unculled[:, gone], torch.zeros_like(
+            unculled[:, gone]))
+        assert torch.equal(culled, unculled[:, src])
+        total[:, src] = total[:, src] + culled
+        dropped += gone.numel()
+    assert 0 < dropped < N_BLOCKS * pairs.shape[1]
+    lane_max = full.abs().amax(dim=1).clamp(min=1e-30)
+    gap = float(((total - full).abs().amax(dim=1) / lane_max).max())
+    assert gap <= K8_PLAIN_TOL, gap
+    if case == "opaque":
+        assert float(t_fin.min()) < tk.T_EPS * 100

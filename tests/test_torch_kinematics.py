@@ -215,3 +215,58 @@ def test_chain_device_constants_are_built_once():
     assert list(tc._device) == [(dev, torch.float32)]    # not rebuilt
     for a, b in zip(outs["cached"], outs["copied"]):
         assert torch.equal(a, b)
+
+
+def test_ik_solver_on_the_cpu_is_the_eager_solve():
+    """On a CPU tensor the solver ``make_ik_fn`` returns runs the eager
+    solve (no graph is captured), bitwise, fallback rows included."""
+    jc, tc = chains()
+    eef = tc.link_index("link7")
+    rng = np.random.default_rng(6)
+    q = T(np.tile(Q0, (5, 1)) + rng.uniform(-0.1, 0.1, (5, 7)))
+    target = tc.fk_link(q + T(rng.uniform(-0.15, 0.15, (5, 7))), eef)
+    target[4, :3, 3] += 0.5          # unreachable: falls back to q_init
+    solver = t_make_ik(tc, eef, n_active=7)
+    got = solver(q, target)
+    assert torch.equal(got, solver.eager(q, target))
+    assert torch.equal(got[4], q[4]) and not torch.equal(got[0], q[0])
+    assert solver.graph.captures == 0 and solver.graph.replays == 0
+
+
+def test_graph_replays_copy_inputs_and_return_clones(monkeypatch):
+    """The graph helper's contract with a stand-in for the CUDA capture
+    (a replay that runs the function on the static inputs into the static
+    output): each call copies its inputs into the static inputs, one
+    capture per input signature, and the returned tensor is a clone, so a
+    result kept across calls is not overwritten by the next replay. A
+    helper that skipped the copy would return the first call's result for
+    the second input."""
+    from real2sim_eval_tpu_torch.utils import graph as graph_mod
+
+    def fake_record(fn, static_in):
+        out = fn(*static_in)
+
+        def replay():
+            out.copy_(fn(*static_in))
+        return replay, out
+
+    monkeypatch.setattr(graph_mod, "_record", fake_record)
+
+    def fn(a, b):
+        return a * 2.0 + b
+
+    g = graph_mod.Graphed(fn)
+    rng = np.random.default_rng(7)
+    x1, y1, x2, y2 = (T(rng.normal(size=(4, 3))) for _ in range(4))
+    r1 = g(x1, y1)
+    keep = r1.clone()
+    r2 = g(x2, y2)
+    assert torch.equal(r1, keep) and torch.equal(r1, fn(x1, y1))
+    assert torch.equal(r2, fn(x2, y2))
+    static_in, _, out = g._graphs[graph_mod.signature((x1, y1))]
+    assert r2.data_ptr() != out.data_ptr()
+    assert torch.equal(static_in[0], x2) and static_in[0].data_ptr() != \
+        x2.data_ptr()
+    r3 = g(x1[:2], y1[:2])                    # a new shape: its own graph
+    assert torch.equal(r3, fn(x1[:2], y1[:2]))
+    assert (g.captures, g.replays) == (2, 3)
