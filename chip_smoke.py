@@ -59,10 +59,18 @@ TIMED_STEPS_STREAM = 5
 TIMED_STEPS_FINE = 5
 # the default path timed once more after the device profiles (main)
 TIMED_STEPS_AFTER = 3
+# step + render samples each stage breakdown averages: one synchronised
+# sample of a stage can land on a host stall several times its usual length
+BREAKDOWN_REPS = 3
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
 # operations/s outside the tensor cores, for the kernels' least times
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# warp boxes (rows, columns) whose culled evaluations pixel_pair_walks
+# counts: K1's 8x16 blocks of the wide tile, and the fine tile whole and
+# split four ways (quadrants, strips)
+WIDE_BOX = ((8, 16),)
+FINE_BOXES = ((8, 16), (4, 8), (2, 16))
 # f32 operations per (pixel, pair) evaluation of the compositor's blend
 # (offsets, the conic quadratic, exp, the alpha/T tests, one update)
 K1_OPS_PER_EVAL = 20
@@ -99,6 +107,9 @@ BRANCH_RGB_TOL = 1e-5
 # (pixels over it counted against flips_limit, as every depth gate here)
 FAMILY_RGB_TOL = 2e-2
 FAMILY_DEPTH_TOL = 1e-2
+# the cull-too-much mutant of K4 and K5: the kernels built with this
+# absolute cull margin in place of tile_blend.cuh's kCullAbs = 1e-4
+CULL_MUTANT_MARGIN = -0.05
 # K3 against its plain version, per case: max |x| (m), max |v| (m/s) and
 # the largest gap between the ropes' centres of mass (m). Each gate is a
 # small multiple of the gap measured on an H100 (PERF.md, Findings);
@@ -249,7 +260,7 @@ def composite_both(pairs, starts, ends, n_tx, n_ty, chunk_inst=16,
 
 
 def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
-                     tile_w: int = 128, blocks: bool = False) -> dict:
+                     tile_w: int = 128, boxes=()) -> dict:
     """What a compositor's walk over this input holds, whatever order a
     kernel does it in. Tile ``tiles[g]`` of a grid n_tx tiles of 8 x tile_w
     pixels wide (8x128, or the 8x16 fine tiles) walks
@@ -262,22 +273,25 @@ def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
       floor, the evaluations an exact cull cannot skip (the bound's count);
     - ``contributions``: the pairs that contribute (the backward's terms);
 
-    and with ``blocks`` (8x128 tiles) K1's evaluations before and after its
-    block cull, each until done at pair granularity (the kernel stops at
-    batch boundaries): ``tile_evals``, 1024 per pair until the tile's last
-    pixel is done (the kernel without the cull), and ``block_evals``, 128
-    per pair that ``tile_kernel.block_cull_keep`` keeps for an 8x16 block
-    until the block's last pixel is done (each warp's walk)."""
+    and with ``boxes`` ((rows, columns) of warp boxes that tile the tile)
+    a compositor's evaluations without and with a per-box cull, each until
+    done at pair granularity (the kernels stop at batch boundaries):
+    ``tile_evals``, 8 * tile_w per pair until the tile's last pixel is
+    done (a walk without the cull: the fine kernels' first form), and
+    ``box_evals`` {"RxC": rows * columns per pair that
+    ``tile_kernel.block_cull_keep`` keeps for a box until the box's last
+    pixel is done, summed over the boxes (each warp's walk)}; K1's 8x16
+    blocks are "8x16" of an 8x128 tile."""
     import torch
 
     from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
 
     dev = pairs.device
     chunk = 16 * 420 * 128 // tile_w          # tiles of 860,160 pixels
-    nb = tile_w // tk.BLOCK_W
     out = {k: torch.zeros((), dtype=torch.int64, device=dev)
-           for k in ("walks", "reaching", "contributions", "tile_evals",
-                     "block_evals")}
+           for k in ("walks", "reaching", "contributions", "tile_evals")}
+    box_evals = {f"{bh}x{bw}": torch.zeros((), dtype=torch.int64, device=dev)
+                 for bh, bw in boxes}
     for i in range(0, starts.shape[0], chunk):
         s = starts[i:i + chunk].long()
         e = ends[i:i + chunk].long()
@@ -285,9 +299,15 @@ def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
         px, py = tk._tile_pixels(t, n_tx, tile_w)
         T = torch.ones((s.shape[0], tk.TILE_H, tile_w), device=dev)
         done = torch.zeros_like(T, dtype=torch.bool)
-        bx0 = ((t % n_tx) * tile_w)[:, None].float() + torch.arange(
-            0, tile_w, tk.BLOCK_W, device=dev).float()[None]    # (g, nb)
-        by0 = ((t // n_tx) * tk.TILE_H)[:, None].float().expand_as(bx0)
+        # per box shape: its origins (g, boxes down, boxes across)
+        origins = {}
+        for bh, bw in boxes:
+            bx0 = ((t % n_tx) * tile_w)[:, None, None].float() + torch.arange(
+                0, tile_w, bw, device=dev).float()[None, None, :]
+            by0 = ((t // n_tx) * tk.TILE_H)[:, None, None].float() + \
+                torch.arange(0, tk.TILE_H, bh, device=dev).float()[None, :,
+                                                                    None]
+            origins[(bh, bw)] = torch.broadcast_tensors(bx0, by0)
         for j in range(int((e - s).max()) if s.numel() else 0):
             in_range = (s + j < e)[:, None, None]
             live = in_range & ~done
@@ -295,14 +315,14 @@ def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
             if j % 32 == 31 and not bool(live.any()):
                 break
             a = pairs[:, torch.where(s + j < e, s + j, 0)][:, :, None, None]
-            if blocks:
+            if boxes:
                 out["tile_evals"] += (live.flatten(1).any(1).sum()
                                       * tk.TILE_H * tile_w)
-                blive = live.reshape(-1, tk.TILE_H, nb, tk.BLOCK_W).any(
-                    dim=3).any(dim=1)                            # (g, nb)
-                keep = tk.block_cull_keep(a[:, :, 0], bx0, by0)
-                out["block_evals"] += ((blive & keep).sum()
-                                       * tk.TILE_H * tk.BLOCK_W)
+            for (bh, bw), (bx0, by0) in origins.items():
+                blive = live.reshape(-1, tk.TILE_H // bh, bh, tile_w // bw,
+                                     bw).any(dim=4).any(dim=2)
+                keep = tk.block_cull_keep(a, bx0, by0, bw, bh)
+                box_evals[f"{bh}x{bw}"] += (blive & keep).sum() * bh * bw
             dx, dy = a[0] - px, a[1] - py
             power = -0.5 * (a[2] * dx * dx + a[4] * dy * dy) - a[3] * dx * dy
             alpha = torch.clamp(a[5] * torch.exp(power), max=tk.ALPHA_MAX)
@@ -315,8 +335,10 @@ def pixel_pair_walks(pairs, starts, ends, tiles, n_tx: int,
             T = torch.where(contrib, test_T, T)
             done = done | finish
     res = {k: int(v) for k, v in out.items()}
-    if not blocks:
-        del res["tile_evals"], res["block_evals"]
+    if boxes:
+        res["box_evals"] = {k: int(v) for k, v in box_evals.items()}
+    else:
+        del res["tile_evals"]
     return res
 
 
@@ -407,13 +429,13 @@ def check_k1_small():
                                                    n_ty)
     w = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
                          torch.arange(starts.numel(), device=DEVICE)
-                         % starts.shape[1], n_tx, blocks=True)
+                         % starts.shape[1], n_tx, boxes=WIDE_BOX)
     out = {"phase": "k1_check", "gaussians": n,
            "pairs": int(pairs.shape[1]),
            "max_abs_rgb": float((rgb_k - rgb_p).abs().max()),
            "differing_depth_pixels": int((dep_k != dep_p).sum()),
            "evaluations": {"tile_level": w["tile_evals"],
-                           "block_level": w["block_evals"]},
+                           "block_level": w["box_evals"]["8x16"]},
            "pixel_pair_blends": w["walks"], "reaching_blends": w["reaching"]}
     emit(out)
     if out["max_abs_rgb"] or out["differing_depth_pixels"]:
@@ -986,12 +1008,14 @@ def check_reference():
 
 
 def gate_vs_plain(phase: str, out: dict, kern, plain, mutant,
-                  bitwise: bool = False) -> None:
+                  bitwise: bool = False, mutant_cull=None) -> None:
     """Adds the max |rgb| and depth flips of a kernel's frames (rgb,
     depth) against its plain version's, and of a broken kernel's, to
     ``out``; emits it; fails unless the kernel passes the gates (with
     ``bitwise``: equals its plain version exactly) and the broken one does
-    not."""
+    not. ``mutant_cull``, where given, is the kernel built with a cull that
+    drops too much (a negative margin): it must not be bitwise the plain
+    version."""
     limit = flips_limit(kern[1].numel())
     out.update({"max_abs_rgb": float((kern[0] - plain[0]).abs().max()),
                 "depth_flips": depth_flips(kern[1], plain[1]),
@@ -1001,6 +1025,12 @@ def gate_vs_plain(phase: str, out: dict, kern, plain, mutant,
                 "mutant_no_op": {
                     "max_abs_rgb": float((mutant[0] - plain[0]).abs().max()),
                     "depth_flips": depth_flips(mutant[1], plain[1])}})
+    if mutant_cull is not None:
+        out["mutant_cull_too_much"] = {
+            "margin": CULL_MUTANT_MARGIN,
+            "max_abs_rgb": float((mutant_cull[0] - plain[0]).abs().max()),
+            "pixels_differing": int(((mutant_cull[0] != plain[0]).any(dim=1)
+                                     | (mutant_cull[1] != plain[1])).sum())}
     emit(out)
     if out["max_abs_rgb"] > RGB_TOL or out["depth_flips"] > limit:
         fail(f"{phase}: the kernel disagrees with its plain version")
@@ -1010,6 +1040,10 @@ def gate_vs_plain(phase: str, out: dict, kern, plain, mutant,
     mut = out["mutant_no_op"]
     if mut["max_abs_rgb"] <= RGB_TOL and mut["depth_flips"] <= limit:
         fail(f"{phase}: a no-op kernel would pass the gates")
+    if mutant_cull is not None and not out["mutant_cull_too_much"][
+            "pixels_differing"]:
+        fail(f"{phase}: a kernel that culls too much would pass the bitwise "
+             "gate")
 
 
 def check_k2_k6_small():
@@ -1049,29 +1083,43 @@ def check_k2_k6_small():
                       tk.copy_frames(args[-5], args[-4]), bitwise=True)
 
 
-def check_k4_small():
+def check_k4_small(mutant_lib):
     """K4 against its plain version on small_flagship_bins' scene, fine
-    binned. The no-op mutant composites nothing (every fine tile's range
-    empty: the background everywhere)."""
+    binned: bitwise (its per-quadrant cull may skip only what changes no
+    pixel), with its evaluations before and after the cull. The no-op
+    mutant composites nothing (every fine tile's range empty: the
+    background everywhere); the cull-too-much mutant is K4 built with a
+    negative cull margin (``mutant_lib``)."""
+    import torch
+
     from real2sim_eval_tpu_torch.renderer import fine_kernel as fk
 
     bins, n_tx, n_ty, n = small_flagship_bins(fine=True)
     args = (bins["pair_attrs"], bins["tile_starts"], bins["tile_ends"], n_tx,
             n_ty)
+    starts = args[1]
+    w = pixel_pair_walks(args[0], starts.reshape(-1), args[2].reshape(-1),
+                         torch.arange(starts.numel(), device=DEVICE)
+                         % starts.shape[1], n_tx * 8, tile_w=16,
+                         boxes=FINE_BOXES)
     mutant = fk.rasterize_fine_batch(args[0], args[1], args[1], n_tx, n_ty)
     gate_vs_plain("k4_check", {
         "phase": "k4_check", "gaussians": n,
-        "fine_tiles": int(bins["tile_starts"].numel()),
-        "pairs": int(bins["pair_attrs"].shape[1])},
+        "fine_tiles": int(starts.numel()),
+        "pairs": int(bins["pair_attrs"].shape[1]),
+        **fine_evaluations(w)},
         fk.rasterize_fine_batch(*args), fk.composite_fine_plain(*args),
-        mutant)
+        mutant, bitwise=True,
+        mutant_cull=mutant_fine_composite(mutant_lib, *args))
 
 
-def check_k5_small():
+def check_k5_small(mutant_lib):
     """K5 against its plain version on check_k2_k6_small's split scene (4
     envs, both fixed cameras): the kernel's inputs are those of one fine
-    incremental render. A no-op mutant (the cached frames returned
-    unchanged) must land over the gates."""
+    incremental render. Bitwise, with its evaluations before and after the
+    cull; a no-op mutant (the cached frames returned unchanged) must land
+    over the gates, the cull-too-much mutant (``mutant_lib``) off the
+    plain version's bits."""
     from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
     from real2sim_eval_tpu_torch.renderer import (RasterConfig,
                                                   incremental_fine)
@@ -1091,12 +1139,140 @@ def check_k5_small():
     finally:
         undo()
     args = seen["args"]
+    w = pixel_pair_walks(args[0], args[3], args[4], args[2], args[7] * 8,
+                         tile_w=16, boxes=FINE_BOXES)
     gate_vs_plain("k5_check", {
         "phase": "k5_check", "envs": B, "cameras": 2,
         "dirty_fine_tiles": int(args[1].numel()),
-        "dirty_supertiles": int(ev.render_telemetry[0][..., 0].sum())},
+        "dirty_supertiles": int(ev.render_telemetry[0][..., 0].sum()),
+        **fine_evaluations(w)},
         fk.rasterize_fine_sparse(*args), fk.composite_fine_sparse_plain(*args),
-        tk.copy_frames(args[5], args[6]))
+        tk.copy_frames(args[5], args[6]), bitwise=True,
+        mutant_cull=mutant_fine_sparse(mutant_lib, *args))
+
+
+def fine_evaluations(w: dict) -> dict:
+    """pixel_pair_walks' counts of a fine kernel's walk (boxes=FINE_BOXES):
+    its (pixel, pair) evaluations without the cull (``tile_evals``, the
+    first form's), with the cull on each box shape (``sub_block_evals``;
+    the kernels' warps walk "4x8" quadrants), and the pixels' own walks
+    and reaching blends."""
+    return {"tile_evals": w["tile_evals"], "sub_block_evals": w["box_evals"],
+            "pixel_pair_blends": w["walks"], "reaching_blends": w["reaching"]}
+
+
+def start_fine_lib(csrc: Path, out: Path, defines=()):
+    """nvcc of csrc's K4 and K5 (fine_composite.cu, fine_sparse.cu) into a
+    shared library with their plain C interface, in the background
+    (seconds: the sources do not include PyTorch's headers). Returns
+    (process, out, whether the launches take a tile order: the
+    declarations in csrc's tile_composite.h say)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from real2sim_eval_tpu_torch import ext
+
+    header = (csrc / "tile_composite.h").read_text()
+    decl = header[header.index("fine_composite_launch("):]
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(
+        [str(Path(CUDA_HOME) / "bin" / "nvcc"), *ext.CUDA_FLAGS, *defines,
+         "-shared", "-Xcompiler", "-fPIC", "-I", str(csrc),
+         str(csrc / "fine_composite.cu"), str(csrc / "fine_sparse.cu"), "-o",
+         str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, out, "order" in decl[:decl.index(";")]
+
+
+def load_fine_lib(build) -> tuple:
+    """The library of start_fine_lib's ``build``, through ctypes: (library,
+    whether its launches take a tile order)."""
+    import ctypes
+
+    proc, path, with_order = build
+    text, _ = proc.communicate()
+    if proc.returncode:
+        fail(f"nvcc failed on {path.name}: {text[-2000:]}")
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    o = [p] if with_order else []
+    lib.fine_composite_launch.argtypes = ([p, ctypes.c_longlong, p, p] + o
+                                          + [i, i, i, f, f, f, p, p, p])
+    lib.fine_sparse_launch.argtypes = ([p, ctypes.c_longlong, p, p, p, p]
+                                       + o + [i, i, i, i, f, f, f, p, p, p])
+    for fn in (lib.fine_composite_launch, lib.fine_sparse_launch):
+        fn.restype = ctypes.c_int
+    return lib, with_order
+
+
+def start_cull_mutant():
+    """start_fine_lib of this checkout's K4 and K5 with a cull margin of
+    CULL_MUTANT_MARGIN, started beside the build."""
+    from real2sim_eval_tpu_torch import ext
+
+    return start_fine_lib(ext.CSRC, ext.BUILD_DIR / "fine_cull_mutant.so",
+                          [f"-DR2S_CULL_ABS={CULL_MUTANT_MARGIN}f"])
+
+
+def fine_lib_composite(lib, with_order: bool, pairs, starts, ends, order,
+                       nsx: int, nsy: int, bg, rgb, depth) -> None:
+    """K4 of a load_fine_lib library into rgb and depth
+    (rasterize_fine_batch's arguments, contiguous, and the tile order)."""
+    import torch
+
+    o = [order.data_ptr()] if with_order else []
+    err = lib.fine_composite_launch(
+        pairs.data_ptr(), pairs.shape[1], starts.data_ptr(), ends.data_ptr(),
+        *o, starts.shape[0], nsx * 8, nsy, *bg, rgb.data_ptr(),
+        depth.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"K4 of {lib._name} did not launch: error {err}")
+
+
+def fine_lib_sparse(lib, with_order: bool, pairs, inst, tile, starts, ends,
+                    order, nsx: int, nsy: int, bg, rgb, depth) -> None:
+    """K5 of a load_fine_lib library into rgb and depth, which hold the
+    cached frames (rasterize_fine_sparse's arguments, contiguous, and the
+    entries' order)."""
+    import torch
+
+    o = [order.data_ptr()] if with_order else []
+    err = lib.fine_sparse_launch(
+        pairs.data_ptr(), pairs.shape[1], inst.data_ptr(), tile.data_ptr(),
+        starts.data_ptr(), ends.data_ptr(), *o, inst.numel(), rgb.shape[0],
+        nsx * 8, nsy, *bg, rgb.data_ptr(), depth.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"K5 of {lib._name} did not launch: error {err}")
+
+
+def mutant_fine_composite(lib, pairs, starts, ends, nsx, nsy,
+                          bg=(0.0, 0.0, 0.0)):
+    """K4's frames from the cull-too-much library (rasterize_fine_batch's
+    arguments)."""
+    import torch
+
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    n_inst = starts.shape[0]
+    rgb = torch.empty((n_inst, 3, nsy * 8, nsx * 128), device=DEVICE)
+    depth = torch.empty((n_inst, nsy * 8, nsx * 128), device=DEVICE)
+    fine_lib_composite(lib, True, pairs.contiguous(), starts.contiguous(),
+                       ends.contiguous(), tk.longest_first(starts, ends), nsx,
+                       nsy, bg, rgb, depth)
+    return rgb, depth
+
+
+def mutant_fine_sparse(lib, pairs, inst, tile, starts, ends, rgb_cache,
+                       depth_cache, nsx, nsy, bg=(0.0, 0.0, 0.0)):
+    """K5's frames from the cull-too-much library (rasterize_fine_sparse's
+    arguments)."""
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    rgb, depth = tk.copy_frames(rgb_cache, depth_cache)
+    fine_lib_sparse(lib, True, *(t.contiguous() for t in (
+        pairs, inst, tile, starts, ends)), tk.longest_first(starts, ends),
+        nsx, nsy, bg, rgb, depth)
+    return rgb, depth
 
 
 # ---------------------------------------------------------------------------
@@ -1195,6 +1371,9 @@ def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
         fail(f"budget saturation: {drops} {tele}")
     if not (finite and shapes_ok):
         fail(f"{phase} frames are not finite or misshapen")
+    if kept is not None and not (ev.wrist_cull or {}).get("static"):
+        fail(f"{phase}: the wrist is rendered unculled, yet the evaluator "
+             "reports kept static blocks")
     for name in kernels:
         if launches[name] < steps:
             fail(f"{phase}: {name} launched {launches[name]} times in "
@@ -1325,13 +1504,7 @@ def ik_sync_free(ev, actions):
     and compose_dyn's, toward the current eef), graphed and eager, under
     ``torch.cuda.set_sync_debug_mode("error")``: fails if either
     synchronises the host with the card. Then one ``step`` and ``render``
-    under "warn", each synchronising call counted by the innermost line of
-    the port (or of this script) that made it. The evaluator's state is
-    put back after that step, so the phases after this one see the state
-    sequence of the timed path alone."""
-    import traceback
-    import warnings
-
+    with their synchronising calls counted (step_render_syncs)."""
     import torch
 
     st = ev.state
@@ -1355,7 +1528,26 @@ def ik_sync_free(ev, actions):
         torch.cuda.set_sync_debug_mode("default")
     ik_ms, _ = time_host(lambda: [ev._ik(st.qpos7, t)
                                   for t in targets.values()])
+    sites = step_render_syncs(ev, actions)
+    emit({"phase": "ik_sync_free", "ik_solves": list(targets),
+          "error_mode_ok": True, "graphed_and_eager_enqueue_ms": enqueue_ms,
+          "ik_ms": ik_ms, "step_render_syncs": sum(sites.values()),
+          "step_render_sync_sites": sites})
 
+
+def step_render_syncs(ev, actions) -> dict:
+    """One ``step`` and ``render`` of evaluator ev under
+    ``torch.cuda.set_sync_debug_mode("warn")``, each synchronising call
+    counted by the innermost line of the port (or of this script) that
+    made it: {site: count}, most first. The evaluator's state is put back
+    after that step, so later phases see the state sequence of the timed
+    paths alone."""
+    import traceback
+    import warnings
+
+    import torch
+
+    st = ev.state
     sites: dict = {}
     root = str(Path(__file__).resolve().parent)
 
@@ -1379,11 +1571,18 @@ def ik_sync_free(ev, actions):
         finally:
             torch.cuda.set_sync_debug_mode("default")
             ev.state = st
-    emit({"phase": "ik_sync_free", "ik_solves": list(targets),
-          "error_mode_ok": True, "graphed_and_eager_enqueue_ms": enqueue_ms,
-          "ik_ms": ik_ms, "step_render_syncs": sum(sites.values()),
-          "step_render_sync_sites": dict(sorted(
-              sites.items(), key=lambda kv: -kv[1]))})
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def fine_step_render_syncs(ev_f, actions) -> None:
+    """step_render_syncs of the fine family's step and render; fails if
+    the fine compositors' wrappers (their tile order included)
+    synchronise."""
+    sites = step_render_syncs(ev_f, actions)
+    emit({"phase": "fine_sync_count", "step_render_syncs":
+          sum(sites.values()), "step_render_sync_sites": sites})
+    if any("fine_kernel.py" in k or "longest_first" in k for k in sites):
+        fail(f"the fine compositors' wrappers synchronise: {sites}")
 
 
 def run_flagship_stream(ev, actions):
@@ -1633,29 +1832,39 @@ def timed_stages(e, acc: dict, fn) -> float:
 
 
 def stage_breakdown(ev, ev_s, actions):
-    """Where a flagship control step and render spend their time: one more
-    step and render of the default path, and one more render of the stream
-    path, with a synchronising host timer around each stage (nested stages
-    count inside their parents: the IK runs in the mimic and in
-    compose_dyn, the LBS in compose_dyn, the cache copy in K2/K6, the
-    pre-cull, preprocess, binning and K1 in the wrist pipeline)."""
+    """Where a flagship control step and render spend their time: the
+    mean of BREAKDOWN_REPS more steps and renders of the default path, and
+    renders of the stream path, with a synchronising host timer around each
+    stage (nested stages count inside their parents: the IK runs in the
+    mimic and in compose_dyn, the LBS in compose_dyn, the cache copy in
+    K2/K6, the pre-cull, preprocess, binning and K1 in the wrist
+    pipeline)."""
     acc, acc_s = {}, {}
-    step_ms = timed_stages(ev, acc, lambda: ev.step(actions))
-    render_ms = timed_stages(ev, acc, ev.render)
-    stream_render_ms = timed_stages(ev_s, acc_s, ev_s.render)
-    emit({"phase": "breakdown", "step_ms": step_ms, "render_ms": render_ms,
-          "stages_ms": acc, "stream_render_ms": stream_render_ms,
-          "stream_render_stages_ms": acc_s})
+    step_ms = render_ms = stream_render_ms = 0.0
+    for _ in range(BREAKDOWN_REPS):
+        step_ms += timed_stages(ev, acc, lambda: ev.step(actions))
+        render_ms += timed_stages(ev, acc, ev.render)
+        stream_render_ms += timed_stages(ev_s, acc_s, ev_s.render)
+    n = BREAKDOWN_REPS
+    emit({"phase": "breakdown", "reps": n, "step_ms": step_ms / n,
+          "render_ms": render_ms / n,
+          "stages_ms": {k: v / n for k, v in acc.items()},
+          "stream_render_ms": stream_render_ms / n,
+          "stream_render_stages_ms": {k: v / n for k, v in acc_s.items()}})
 
 
 def fine_breakdown(ev_f, actions):
-    """stage_breakdown for the fine family: one more step and render with
-    each stage timed."""
+    """stage_breakdown for the fine family: the mean of BREAKDOWN_REPS
+    more steps and renders with each stage timed."""
     acc = {}
-    step_ms = timed_stages(ev_f, acc, lambda: ev_f.step(actions))
-    render_ms = timed_stages(ev_f, acc, ev_f.render)
-    emit({"phase": "breakdown_fine", "step_ms": step_ms,
-          "render_ms": render_ms, "stages_ms": acc})
+    step_ms = render_ms = 0.0
+    for _ in range(BREAKDOWN_REPS):
+        step_ms += timed_stages(ev_f, acc, lambda: ev_f.step(actions))
+        render_ms += timed_stages(ev_f, acc, ev_f.render)
+    n = BREAKDOWN_REPS
+    emit({"phase": "breakdown_fine", "reps": n, "step_ms": step_ms / n,
+          "render_ms": render_ms / n,
+          "stages_ms": {k: v / n for k, v in acc.items()}})
 
 
 def device_profiles(runs) -> None:
@@ -1754,7 +1963,7 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
         pairs, starts, ends, n_tx, n_ty)
     tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
     w1 = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
-                          tiles, n_tx, blocks=True)
+                          tiles, n_tx, boxes=WIDE_BOX)
     k1_bound, k1_by = k1_bound_ms(pairs, starts, rgb_k, w1["reaching"])
     k1 = {"name": "tile_composite", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/tile_composite.cu",
@@ -1773,7 +1982,7 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
                                  "reaching_blends": w1["reaching"],
                                  "evaluations": {
                                      "tile_level": w1["tile_evals"],
-                                     "block_level": w1["block_evals"]}}}
+                                     "block_level": w1["box_evals"]["8x16"]}}}
 
     args2 = k2_seen["args"]
     m_pairs, inst, tile, m_st, m_en, rgb_c, dep_c, ntx, nty, bg = args2
@@ -1783,7 +1992,7 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     rgb_k, dep_k = tk.rasterize_tiles_sparse(*args2)
     k2_plain_ms, (rgb_p, dep_p) = time_host(
         lambda: tk.composite_sparse_plain(*args2))
-    w2 = pixel_pair_walks(m_pairs, m_st, m_en, tile, ntx, blocks=True)
+    w2 = pixel_pair_walks(m_pairs, m_st, m_en, tile, ntx, boxes=WIDE_BOX)
     k2_depth_diff = int((dep_k != dep_p).sum())
     rows = int((m_en - m_st).sum())
     k2_bound, k2_by = sparse_bound_ms(rows, 4, int(inst.numel()),
@@ -1804,7 +2013,7 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
                              "reaching_blends": w2["reaching"],
                              "evaluations": {
                                  "tile_level": w2["tile_evals"],
-                                 "block_level": w2["block_evals"]},
+                                 "block_level": w2["box_evals"]["8x16"]},
                              "depth_pixels_differing": k2_depth_diff}
 
     args6 = k6_seen["args"]
@@ -1820,7 +2029,7 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
     # the merged order of K6 is K2's: K2 over the same merge, bitwise
     rgb_2, dep_2 = tk.rasterize_tiles_sparse(merged, inst, tile, m_st, m_en,
                                              rgb_c, dep_c, ntx, nty, bg)
-    w6 = pixel_pair_walks(merged, m_st, m_en, tile, ntx, blocks=True)
+    w6 = pixel_pair_walks(merged, m_st, m_en, tile, ntx, boxes=WIDE_BOX)
     k6_depth_diff = int((dep_k != dep_p).sum())
     rows = int((se - ss).sum() + (de - ds).sum())
     k6_bound, k6_by = sparse_bound_ms(rows, 6, int(inst.numel()),
@@ -1842,7 +2051,7 @@ def measure_kernels(ev, ev_s, actions, launches, launches_s):
                                    "reaching_blends": w6["reaching"],
                                    "evaluations": {
                                        "tile_level": w6["tile_evals"],
-                                       "block_level": w6["block_evals"]},
+                                       "block_level": w6["box_evals"]["8x16"]},
                                    "depth_pixels_differing": k6_depth_diff,
                                    "differing_pixels_vs_k2": k6_vs_k2}
     inputs["spring_mass_step"] = {
@@ -1877,8 +2086,11 @@ def measure_fine_kernels(ev_f, actions, launches_f):
     """K4 and K5 at the fine flagship's shapes: their inputs captured from
     one more step and render (K4: the wrist's fine full pipeline; K5: the
     fixed cameras' dirty fine tiles), then each kernel, its plain version
-    and the least time the card could take. K5's time is of the kernel
-    alone, into preallocated frames (no cache copy)."""
+    (both bitwise), the least time the card could take, the evaluations
+    of the walk without and with the per-quadrant cull, and the split of
+    each kernel's time between its 1 % heaviest tiles and the rest. K5's
+    time is of the kernel and its tile order alone, into preallocated
+    frames (no cache copy)."""
     import torch
 
     from real2sim_eval_tpu_torch import ext
@@ -1904,7 +2116,7 @@ def measure_fine_kernels(ev_f, actions, launches_f):
         pairs, starts, ends, nsx, nsy, fine=True)
     tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
     w4 = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1),
-                          tiles, nsx * 8, tile_w=16)
+                          tiles, nsx * 8, tile_w=16, boxes=FINE_BOXES)
     k4_bound, k4_by = k1_bound_ms(pairs, starts, rgb_k, w4["reaching"])
     k4 = {"name": "fine_composite", "route": "cuda",
           "source": "real2sim_eval_tpu_torch/csrc/fine_composite.cu",
@@ -1913,8 +2125,7 @@ def measure_fine_kernels(ev_f, actions, launches_f):
           "max_abs_err": float((rgb_k - rgb_p).abs().max()),
           "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
           "bound_by": k4_by, "library_ms": None}
-    flips = {"fine_composite": depth_flips(dep_k, dep_p)}
-    limits = {"fine_composite": flips_limit(dep_k.numel())}
+    differing = {"fine_composite": int((dep_k != dep_p).sum())}
     per_inst = (ends - starts).sum(dim=1).float()
     inputs = {"fine_composite": {
         "instances": int(starts.shape[0]), "fine_tiles": int(starts.numel()),
@@ -1922,18 +2133,26 @@ def measure_fine_kernels(ev_f, actions, launches_f):
         "pairs_per_wrist_instance": {"mean": float(per_inst.mean()),
                                      "max": int(per_inst.max())},
         "longest_fine_tile": int((ends - starts).max()),
-        "pixel_pair_blends": w4["walks"], "reaching_blends": w4["reaching"]}}
+        **fine_evaluations(w4),
+        "heaviest_tiles": heaviest_split(starts, ends, {
+            "k4": lambda e: fk.rasterize_fine_batch(pairs, starts, e, nsx,
+                                                    nsy)})}}
 
     args5 = k5_seen["args"]
     m_pairs, inst, tile, m_st, m_en, rgb_c, dep_c, nsx5, nsy5, bg = args5
     rgb_o, dep_o = tk.copy_frames(rgb_c, dep_c)
-    k5_ms = time_cuda(lambda: lib.fine_sparse(
-        m_pairs, inst, tile, m_st, m_en, nsx5 * 8, nsy5, *bg, rgb_o, dep_o),
-        10)
+
+    def k5_alone(e):
+        lib.fine_sparse(m_pairs, inst, tile, m_st, e,
+                        tk.longest_first(m_st, e), nsx5 * 8, nsy5, *bg,
+                        rgb_o, dep_o)
+
+    k5_ms = time_cuda(lambda: k5_alone(m_en), 10)
     rgb_k, dep_k = fk.rasterize_fine_sparse(*args5)
     k5_plain_ms, (rgb_p, dep_p) = time_host(
         lambda: fk.composite_fine_sparse_plain(*args5))
-    w5 = pixel_pair_walks(m_pairs, m_st, m_en, tile, nsx5 * 8, tile_w=16)
+    w5 = pixel_pair_walks(m_pairs, m_st, m_en, tile, nsx5 * 8, tile_w=16,
+                          boxes=FINE_BOXES)
     rows = int((m_en - m_st).sum())
     k5_bound, k5_by = sparse_bound_ms(rows, 4, int(inst.numel()),
                                       w5["reaching"], tile_w=16)
@@ -1944,19 +2163,19 @@ def measure_fine_kernels(ev_f, actions, launches_f):
           "max_abs_err": float((rgb_k - rgb_p).abs().max()),
           "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
           "bound_by": k5_by, "library_ms": None}
-    flips["fine_sparse"] = depth_flips(dep_k, dep_p)
-    limits["fine_sparse"] = flips_limit(dep_k.numel())
+    differing["fine_sparse"] = int((dep_k != dep_p).sum())
     inputs["fine_sparse"] = {"instances": int(rgb_k.shape[0]),
                              "dirty_fine_tiles": int(inst.numel()),
-                             "merged_pairs": rows,
-                             "pixel_pair_blends": w5["walks"],
-                             "reaching_blends": w5["reaching"]}
-    emit({"phase": "fine_kernel_inputs", "depth_flips": flips,
-          "flips_limits": limits, **inputs})
+                             "merged_pairs": rows, **fine_evaluations(w5),
+                             "heaviest_tiles": heaviest_split(
+                                 m_st, m_en, {"k5": k5_alone})}
+    emit({"phase": "fine_kernel_inputs",
+          "depth_pixels_differing": differing, **inputs})
     for k in (k4, k5):
-        if (k["max_abs_err"] > RGB_TOL
-                or flips[k["name"]] > limits[k["name"]]):
-            fail(f"{k['name']} disagrees at the main path's shapes: {k}")
+        if k["max_abs_err"] or differing[k["name"]]:
+            fail(f"{k['name']} is not bitwise its plain version at the main "
+                 f"path's shapes: {k}, {differing[k['name']]} depth pixels "
+                 "differ")
     return [k4, k5]
 
 
@@ -2168,7 +2387,7 @@ def measure_refine_kernels(launches, k7_args, k8_args):
         lambda: tk.composite_tiles_plain(*k7_args, with_t=True))
     tiles = torch.arange(starts.numel(), device=DEVICE) % starts.shape[1]
     w7 = pixel_pair_walks(pairs, starts.reshape(-1), ends.reshape(-1), tiles,
-                          n_tx, blocks=True)
+                          n_tx, boxes=WIDE_BOX)
     # rgb, depth and T written: 5 planes
     k7_bound, k7_by = bound_ms(pairs.numel() * 4 + 2 * starts.numel() * 4
                                + rgb_k.numel() * 4 * 5 // 3, w7["reaching"])
@@ -2209,7 +2428,7 @@ def measure_refine_kernels(launches, k7_args, k8_args):
           "reaching_blends": w7["reaching"],
           "contributing_blends": w7["contributions"],
           "k7_evaluations": {"tile_level": w7["tile_evals"],
-                             "block_level": w7["block_evals"]},
+                             "block_level": w7["box_evals"]["8x16"]},
           "k8_vs_plain_max_rel": k8_rel, "k8_plain_tol": K8_PLAIN_TOL,
           "k7_max_abs_t": float((t_k - t_p).abs().max()),
           "k7_vs_k1_differing_pixels": k7_vs_k1,
@@ -2222,17 +2441,15 @@ def measure_refine_kernels(launches, k7_args, k8_args):
     return [k7, k8]
 
 
-def heaviest_tiles(k7_args, k8_args) -> dict:
-    """Whether the longest tiles bound K7 and K8: each timed (CUDA events,
-    mean of 10) on the 1 % of tiles with the most pairs alone and on all
-    the other tiles alone (a tile left out gets an empty range). Where the
-    heaviest tiles alone take most of the whole launch's time, one CTA's
-    walk, not the total work, sets it."""
+def heaviest_split(starts, ends, timed: dict) -> dict:
+    """Whether the longest tiles bound a kernel: each ``timed[label](e)``
+    (a launch over the ranges [starts, e)) timed (CUDA events, mean of 10)
+    on the 1 % of tiles (or dirty-list entries) with the most pairs alone
+    and on all the others alone (a tile left out gets an empty range).
+    Where the heaviest tiles alone take most of the whole launch's time,
+    one CTA's walk, not the total work, sets it."""
     import torch
 
-    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
-
-    pairs, starts, ends, n_tx, n_ty, bg = k7_args
     counts = (ends - starts).reshape(-1)
     top = torch.topk(counts, max(1, counts.numel() // 100)).indices
     heavy = torch.zeros_like(counts, dtype=torch.bool)
@@ -2242,11 +2459,21 @@ def heaviest_tiles(k7_args, k8_args) -> dict:
            "pairs_heaviest_share": float(counts[top].sum() / counts.sum())}
     for name, keep in (("heaviest", heavy), ("rest", ~heavy)):
         e = torch.where(keep.reshape(starts.shape), ends, starts)
-        out[f"k7_ms_{name}"] = time_cuda(lambda: tk.rasterize_tiles_batch_t(
-            pairs, starts, e, n_tx, n_ty, bg), 10)
-        out[f"k8_ms_{name}"] = time_cuda(lambda: tk.composite_backward(
-            k8_args[0], starts, e, *k8_args[3:]), 10)
+        for label, fn in timed.items():
+            out[f"{label}_ms_{name}"] = time_cuda(lambda: fn(e), 10)
     return out
+
+
+def heaviest_tiles(k7_args, k8_args) -> dict:
+    """heaviest_split of K7 and K8 at the refinement's shapes."""
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    pairs, starts, ends, n_tx, n_ty, bg = k7_args
+    return heaviest_split(starts, ends, {
+        "k7": lambda e: tk.rasterize_tiles_batch_t(pairs, starts, e, n_tx,
+                                                   n_ty, bg),
+        "k8": lambda e: tk.composite_backward(k8_args[0], starts, e,
+                                              *k8_args[3:])})
 
 
 def start_ptxas() -> dict:
@@ -2300,7 +2527,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ptxas = start_ptxas()
+    mutant = start_cull_mutant()
     ext.load()
+    mutant_lib = load_fine_lib(mutant)[0]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "flags": list(ext.CUDA_FLAGS), "sources": list(ext.SOURCES)})
     report_ptxas(ptxas)
@@ -2309,8 +2538,8 @@ def main() -> int:
     check_k7_small()
     check_k8_small()
     check_k2_k6_small()
-    check_k4_small()
-    check_k5_small()
+    check_k4_small(mutant_lib)
+    check_k5_small(mutant_lib)
     check_k3_drift()
     check_k3_grasp()
     check_k3_loop()
@@ -2321,6 +2550,7 @@ def main() -> int:
     ik_sync_free(ev, actions)
     ev_s, launches_s = run_flagship_stream(ev, actions)
     ev_f, launches_f, flagship_f = run_flagship_fine(ev, actions)
+    fine_step_render_syncs(ev_f, actions)
     render_parity(ev, ev_s)
     fine_render_parity(ev, ev_f)
     stage_breakdown(ev, ev_s, actions)

@@ -182,38 +182,43 @@ void tile_sparse_merge(torch::Tensor data_s, torch::Tensor data_d,
 }
 
 void fine_composite(torch::Tensor pairs, torch::Tensor starts,
-                    torch::Tensor ends, int64_t n_fine_x, int64_t n_tiles_y,
-                    double bg0, double bg1, double bg2, torch::Tensor rgb,
-                    torch::Tensor depth) {
+                    torch::Tensor ends, torch::Tensor order, int64_t n_fine_x,
+                    int64_t n_tiles_y, double bg0, double bg1, double bg2,
+                    torch::Tensor rgb, torch::Tensor depth) {
   const int64_t n_inst =
       check_ranges(pairs, starts, ends, n_fine_x, n_tiles_y);
+  check(order, "order", at::kInt);
+  TORCH_CHECK(order.numel() == starts.numel(),
+              "order must list every (instance, fine tile)");
   check_frames(rgb, depth, n_inst, n_fine_x, n_tiles_y, 16);
   const c10::cuda::CUDAGuard guard(pairs.device());
   C10_CUDA_CHECK(fine_composite_launch(
       pairs.data_ptr<float>(), pairs.size(1), starts.data_ptr<int>(),
-      ends.data_ptr<int>(), (int)n_inst, (int)n_fine_x, (int)n_tiles_y,
-      (float)bg0, (float)bg1, (float)bg2, rgb.data_ptr<float>(),
-      depth.data_ptr<float>(), c10::cuda::getCurrentCUDAStream()));
+      ends.data_ptr<int>(), order.data_ptr<int>(), (int)n_inst,
+      (int)n_fine_x, (int)n_tiles_y, (float)bg0, (float)bg1, (float)bg2,
+      rgb.data_ptr<float>(), depth.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void fine_sparse(torch::Tensor pairs, torch::Tensor inst_ids,
                  torch::Tensor tile_ids, torch::Tensor starts,
-                 torch::Tensor ends, int64_t n_fine_x, int64_t n_tiles_y,
-                 double bg0, double bg1, double bg2, torch::Tensor rgb,
-                 torch::Tensor depth) {
+                 torch::Tensor ends, torch::Tensor order, int64_t n_fine_x,
+                 int64_t n_tiles_y, double bg0, double bg1, double bg2,
+                 torch::Tensor rgb, torch::Tensor depth) {
   check_table(pairs, "pairs");
   const int64_t n_dirty = check_dirty_list(
       {{&inst_ids, "inst_ids"}, {&tile_ids, "tile_ids"},
-       {&starts, "starts"}, {&ends, "ends"}});
+       {&starts, "starts"}, {&ends, "ends"}, {&order, "order"}});
   check_frames(rgb, depth, rgb.size(0), n_fine_x, n_tiles_y, 16);
   const c10::cuda::CUDAGuard guard(pairs.device());
   C10_CUDA_CHECK(fine_sparse_launch(
       pairs.data_ptr<float>(), pairs.size(1), inst_ids.data_ptr<int>(),
       tile_ids.data_ptr<int>(), starts.data_ptr<int>(), ends.data_ptr<int>(),
-      (int)n_dirty, (int)rgb.size(0), (int)n_fine_x, (int)n_tiles_y,
-      (float)bg0, (float)bg1, (float)bg2, rgb.data_ptr<float>(),
-      depth.data_ptr<float>(), c10::cuda::getCurrentCUDAStream()));
+      order.data_ptr<int>(), (int)n_dirty, (int)rgb.size(0), (int)n_fine_x,
+      (int)n_tiles_y, (float)bg0, (float)bg1, (float)bg2,
+      rgb.data_ptr<float>(), depth.data_ptr<float>(),
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

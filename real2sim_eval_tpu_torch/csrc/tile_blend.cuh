@@ -1,21 +1,22 @@
-// Front-to-back splat blending of one tile, 8 rows high: the per-thread
-// pixel state and the per-batch blend shared by the wide (8x128) tile
-// compositors K1 and K7 (tile_composite.cu), K2 (tile_sparse.cu) and K6
-// (tile_sparse_merge.cu), and the fine (8x16) compositors K4
-// (fine_composite.cu) and K5 (fine_sparse.cu), so they cannot drift apart.
-// The backward K8 (tile_backward.cu) walks the wide tile as K1 does and
-// repeats the blend's tests in the same order to recompute T.
+// Front-to-back splat blending: the per-(pixel, pair) step and the walks
+// shared by the wide (8x128) tile compositors K1 and K7
+// (tile_composite.cu), K2 (tile_sparse.cu) and K6 (tile_sparse_merge.cu),
+// and the fine (8x16) compositors K4 (fine_composite.cu) and K5
+// (fine_sparse.cu), so they cannot drift apart. The backward K8
+// (tile_backward.cu) walks the wide tile as K1 does and repeats the blend's
+// tests in the same order to recompute T.
 //
-// Layout of the fine tile (PixelsT): one CTA of 128 threads, one pixel
-// each. A batch of up to NT pairs sits in shared memory as
-// structure-of-arrays, sh[attr][pair], attrs [x, y, conic a/b/c, opacity,
-// r, g, b, depth]. The wide tile (WarpPixels): one CTA of 256 threads, each
-// warp owning one 8x16 block, 4 pixels a lane; walk_culled feeds it
-// batches from a RangeSource (a contiguous pair range: K1, K7, K2, K8) or a
-// MergeSource (the depth merge of a static and a dynamic segment: K6) and
-// skips, per warp, the pairs that provably cannot reach the warp's block.
-// Every compositor evaluates a (pixel, pair) through blend_pixel, so their
-// per-pixel sequences of operations are one.
+// The wide tile (WarpPixels): one CTA of 256 threads, each warp owning one
+// 8x16 block, 4 pixels a lane; walk_culled feeds it batches from a
+// RangeSource (a contiguous pair range: K1, K7, K2, K8) or a MergeSource
+// (the depth merge of a static and a dynamic segment: K6), structure of
+// arrays sh[attr][pair], attrs [x, y, conic a/b/c, opacity, r, g, b,
+// depth], and skips, per warp, the pairs that provably cannot reach the
+// warp's block. The fine tile (QuadPixel, walk_fine): one CTA of 128
+// threads, each warp owning one 4x8 quadrant, one pixel a lane, walking
+// the tile's pairs on its own with the same cull on the quadrant. Every
+// compositor evaluates a (pixel, pair) through
+// blend_pixel, so their per-pixel sequences of operations are one.
 //
 // Numerics: build without --use_fast_math and with --fmad=false, and use
 // expf: every comparison below (power <= 0, alpha >= 1/255, test_T < 1e-4,
@@ -34,7 +35,6 @@ constexpr int kTileW = 128;
 constexpr int kThreads = 256;
 constexpr int kBatch = 256;
 constexpr int kFineW = 16;
-constexpr int kFineThreads = 128;                           // 1 pixel each
 constexpr int kAttr = 10;
 constexpr int kDepthAttr = 9;
 constexpr float kAlphaMin = 0.003921568859368563f;          // f32(1/255)
@@ -42,52 +42,12 @@ constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 constexpr float kDepthDefault = 15.0f;
 
-// The pixels one of NT threads blends in a kTileH x TW tile: column px,
-// rows py[k].
-template <int TW, int NT>
-struct PixelsT {
-  static constexpr int kPix = kTileH * TW / NT;
-  static constexpr int kRowStep = NT / TW;
-  static_assert(NT % TW == 0 && kTileH % kRowStep == 0,
-                "a thread owns whole rows of one column");
-  float px;
-  float py[kPix];
-  float T[kPix], Cr[kPix], Cg[kPix], Cb[kPix], D[kPix];
-  bool done[kPix];
-};
-
-using FinePixels = PixelsT<kFineW, kFineThreads>;  // K4, K5
 static_assert(kBatch == kThreads, "one thread loads each slot of a batch");
 
-// Keeps a parameter out of template argument deduction: the tile shape is
-// deduced from the pixels alone, and the shared batch converts as usual.
-template <typename T>
-struct Same {
-  using type = T;
-};
-
-template <int TW, int NT>
-__device__ __forceinline__ void init_pixels(PixelsT<TW, NT>& p, int tx,
-                                            int ty) {
-  using P = PixelsT<TW, NT>;
-  const int col = threadIdx.x % TW;
-  const int row0 = threadIdx.x / TW;
-  p.px = (float)(tx * TW + col);
-#pragma unroll
-  for (int k = 0; k < P::kPix; ++k) {
-    p.py[k] = (float)(ty * kTileH + row0 + P::kRowStep * k);
-    p.T[k] = 1.0f;
-    p.Cr[k] = 0.0f;
-    p.Cg[k] = 0.0f;
-    p.Cb[k] = 0.0f;
-    p.D[k] = kDepthDefault;
-    p.done[k] = false;
-  }
-}
-
 // 1 while any of this thread's pixels can still take a contribution; a
-// CTA stops once __syncthreads_count of it is 0 (the TPU kernel's
-// while_loop condition). P is PixelsT or WarpPixels.
+// wide tile's CTA (walk_culled) or a fine quadrant's warp (walk_fine)
+// stops once it is 0 on all its threads (the TPU kernel's while_loop
+// condition). P is WarpPixels or QuadPixel.
 template <typename P>
 __device__ __forceinline__ int any_live(const P& p) {
   int live = 0;
@@ -139,36 +99,6 @@ __device__ __forceinline__ void blend_pair(const float (*sh)[NT], int j,
                 p.Cr[k], p.Cg[k], p.Cb[k], p.D[k], p.done[k]);
 }
 
-// Blend the first n pairs of the shared batch, in order, into p.
-template <int TW, int NT>
-__device__ __forceinline__ void blend_batch(
-    typename Same<const float (*)[NT]>::type sh, int n,
-    PixelsT<TW, NT>& p) {
-  for (int j = 0; j < n; ++j) blend_pair(sh, j, p);
-}
-
-// Blend the contiguous pair range [start, end) of a (10, n_pairs) table,
-// batch by batch of NT pairs, stopping once every pixel of the tile is
-// done.
-template <int TW, int NT>
-__device__ __forceinline__ void blend_range(
-    const float* __restrict__ pairs, long long n_pairs, int start, int end,
-    typename Same<float (*)[NT]>::type sh, PixelsT<TW, NT>& p) {
-  const int tid = threadIdx.x;
-  for (int base = start; base < end; base += NT) {
-    // also the barrier that retires the previous batch's shared reads
-    if (__syncthreads_count(any_live(p)) == 0) break;
-    const int n = min(NT, end - base);
-    if (tid < n) {
-#pragma unroll
-      for (int a = 0; a < kAttr; ++a)
-        sh[a][tid] = pairs[(long long)a * n_pairs + base + tid];
-    }
-    __syncthreads();
-    blend_batch(sh, n, p);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K1, K7, K2, K6 and K8: one 8x16 block of the 8x128 tile per warp
 // ---------------------------------------------------------------------------
@@ -215,32 +145,43 @@ __device__ __forceinline__ void init_pixels(WarpPixels& p, int tx, int ty) {
 // the pixel. That f32 Q differs from the exact one by at most ~8 u S, u =
 // 2^-24, S = |a| dx^2 + 2 |b| |dx dy| + |c| dy^2: rounding is relative to
 // the terms, not to Q, which thin rotated splats cancel to near 0. The
-// block's exact minimum of Q lies below every pixel's; its f32 estimate (a
+// box's exact minimum of Q lies below every pixel's; its f32 estimate (a
 // candidate of the binning's formulas, on a box whose corners are rounded
 // once or twice) exceeds it by at most ~10 u S more (4 u S from the box's
 // shift along the gradient, 6 u S from evaluating Q; a candidate off the
 // exact minimiser by rounding adds only O(u^2 S)). S is largest at the
 // box's far corner, so keeping every pair with
 //   qmin <= 2 ln(255 op) + kCullAbs + kCullRel * S(far corner)
-// keeps every pair a pixel of the block takes: kCullRel = 1e-5 is ~168 u
+// keeps every pair a pixel of the box takes: kCullRel = 1e-5 is ~168 u
 // against the ~18 u needed, kCullAbs = 1e-4 covers 2 eta and the f32
-// threshold's own error (~3e-6). A wider margin only costs speed.
-constexpr float kCullAbs = 1e-4f;
+// threshold's own error (~3e-6). Nothing above depends on the box's size:
+// the per-pixel and the per-box bounds are each relative to S at some
+// point of the box, and the far corner bounds S over any axis-aligned box,
+// so the margin holds as it is for K1's 8x16 blocks and for the fine
+// kernels' 4x8 quadrants alike. A wider margin only costs speed.
+// R2S_CULL_ABS exists for one test build: chip_smoke.py compiles the fine
+// kernels with a negative margin and checks that its gates reject them.
+#ifndef R2S_CULL_ABS
+#define R2S_CULL_ABS 1e-4f
+#endif
+constexpr float kCullAbs = R2S_CULL_ABS;
 constexpr float kCullRel = 1e-5f;
 
 // false only where pair (gx, gy, conic a/b/c, op) adds nothing to any pixel
-// of the 8x16 block whose first pixel is (bx0, by0): the binning's exact
-// conic cull (renderer/binning.py _exact_cull_keep) on the block, with the
-// margin above. A conic that is not positive definite, a non-finite
-// attribute or a negative opacity is always kept.
+// of the BW x BH box (columns x rows; K1's 8x16 block by default) whose
+// first pixel is (bx0, by0): the binning's exact conic cull
+// (renderer/binning.py _exact_cull_keep) on the box, with the margin above.
+// A conic that is not positive definite, a non-finite attribute or a
+// negative opacity is always kept.
+template <int BW = kBlockW, int BH = kTileH>
 __device__ __forceinline__ bool block_keep(float gx, float gy, float ca,
                                            float cb, float cc, float op,
                                            float bx0, float by0) {
   if (!(ca >= 1e-20f && cc >= 1e-20f && ca * cc - cb * cb > 0.0f &&
         op >= 0.0f && isfinite(gx + gy + ca + cb + cc + op)))
     return true;
-  const float lx = bx0 - gx, ux = lx + (float)(kBlockW - 1);
-  const float ly = by0 - gy, uy = ly + (float)(kTileH - 1);
+  const float lx = bx0 - gx, ux = lx + (float)(BW - 1);
+  const float ly = by0 - gy, uy = ly + (float)(BH - 1);
   const float ica = 1.0f / ca, icc = 1.0f / cc;
   const auto q = [&](float dx, float dy) {
     return ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy;
@@ -443,33 +384,7 @@ __device__ __forceinline__ void blend_range_culled(
 
 // out = C + T * bg and the median depth, into instance inst's frame of
 // h_pad x w_pad pixels at tile (tx, ty); the final transmittance T too
-// where t_fin is not null (K7).
-template <int TW, int NT>
-__device__ __forceinline__ void store_pixels(const PixelsT<TW, NT>& p,
-                                             int inst, int tx, int ty,
-                                             int h_pad, int w_pad, float bg0,
-                                             float bg1, float bg2,
-                                             float* rgb, float* depth,
-                                             float* t_fin = nullptr) {
-  using P = PixelsT<TW, NT>;
-  const int col = threadIdx.x % TW;
-  const int row0 = threadIdx.x / TW;
-  const long long plane = (long long)h_pad * w_pad;
-#pragma unroll
-  for (int k = 0; k < P::kPix; ++k) {
-    const long long pix =
-        (long long)(ty * kTileH + row0 + P::kRowStep * k) * w_pad + tx * TW +
-        col;
-    float* out = rgb + (long long)inst * 3 * plane + pix;
-    out[0] = p.Cr[k] + p.T[k] * bg0;
-    out[plane] = p.Cg[k] + p.T[k] * bg1;
-    out[2 * plane] = p.Cb[k] + p.T[k] * bg2;
-    depth[(long long)inst * plane + pix] = p.D[k];
-    if (t_fin) t_fin[(long long)inst * plane + pix] = p.T[k];
-  }
-}
-
-// store_pixels for the warp blocks of K1, K7, K2 and K6.
+// where t_fin is not null (K7). For the warp blocks of K1, K7, K2 and K6.
 __device__ __forceinline__ void store_pixels(const WarpPixels& p, int inst,
                                              int tx, int ty, int h_pad,
                                              int w_pad, float bg0, float bg1,
@@ -489,6 +404,133 @@ __device__ __forceinline__ void store_pixels(const WarpPixels& p, int inst,
     depth[(long long)inst * plane + pix] = p.D[k];
     if (t_fin) t_fin[(long long)inst * plane + pix] = p.T[k];
   }
+}
+
+// ---------------------------------------------------------------------------
+// K4 and K5: one 4x8 quadrant of the 8x16 fine tile per warp
+// ---------------------------------------------------------------------------
+
+constexpr int kFineThreads = 128;           // 4 warps, one quadrant each
+constexpr int kQuadW = 8;
+constexpr int kQuadH = 4;
+static_assert(kFineThreads / 32 * kQuadW * kQuadH == kFineW * kTileH,
+              "4 quadrants span the fine tile");
+// A warp's batch: kWarpBatch pairs, one a lane, stored pair-major as
+// three float4s [x, y, a, b] [c, op, r, g] [b, depth, -, -]: a lane reads
+// its own slot without bank conflicts (48-byte stride), and the warp reads
+// a kept pair with three broadcast loads.
+constexpr int kWarpBatch = 32;
+constexpr int kSlot = 12;
+
+// The pixel of a lane of warp w: quadrant (w % 2, w / 2) of the fine tile,
+// column 8 (w % 2) + lane % 8, row 4 (w / 2) + lane / 8.
+struct QuadPixel {
+  static constexpr int kPix = 1;
+  float px, py;
+  float T[kPix], Cr[kPix], Cg[kPix], Cb[kPix], D[kPix];
+  bool done[kPix];
+};
+
+// The first pixel of this warp's quadrant in fine tile (tx, ty).
+__device__ __forceinline__ int quad_x0(int tx) {
+  return tx * kFineW + ((threadIdx.x / 32) % 2) * kQuadW;
+}
+
+__device__ __forceinline__ int quad_y0(int ty) {
+  return ty * kTileH + (threadIdx.x / 32 / 2) * kQuadH;
+}
+
+__device__ __forceinline__ void init_pixels(QuadPixel& p, int tx, int ty) {
+  p.px = (float)(quad_x0(tx) + threadIdx.x % kQuadW);
+  p.py = (float)(quad_y0(ty) + (threadIdx.x % 32) / kQuadW);
+  p.T[0] = 1.0f;
+  p.Cr[0] = 0.0f;
+  p.Cg[0] = 0.0f;
+  p.Cb[0] = 0.0f;
+  p.D[0] = kDepthDefault;
+  p.done[0] = false;
+}
+
+// One warp's walk of the contiguous pair range [start, end) of a (10,
+// n_pairs) table over its quadrant, on its own: batches of kWarpBatch
+// pairs through the warp's two shared buffers (sh[buf] holds kWarpBatch *
+// kSlot floats, 16-byte aligned), batch n + 1 loading by cp.async while
+// batch n is walked. Once a batch lands, lane l tests pair l against the
+// quadrant; the warp then blends the kept pairs only, in ascending order.
+// The warp stops once its 32 pixels are done (the TPU kernel's while_loop
+// condition, per quadrant); no barrier ties it to the other warps of its
+// CTA, so a quadrant that keeps more pairs holds up no other. Every pixel
+// thus sees the pairs of the unculled walk less some that cannot pass
+// power <= 0 and alpha >= 1/255 at it: its state changes are the plain
+// version's.
+__device__ __forceinline__ void walk_fine(const float* __restrict__ pairs,
+                                          long long n_pairs, int start,
+                                          int end,
+                                          float (*sh)[kWarpBatch * kSlot],
+                                          QuadPixel& p, float bx0,
+                                          float by0) {
+  const int lane = threadIdx.x % 32;
+  const auto load = [&](int base, float* dst) {
+    const int n = max(0, min(kWarpBatch, end - base));
+    if (lane < n) {
+#pragma unroll
+      for (int a = 0; a < kAttr; ++a)
+        cp_async4(dst + lane * kSlot + a,
+                  pairs + (long long)a * n_pairs + base + lane);
+    }
+    cp_async_commit();
+    return n;
+  };
+  int base = start;
+  int n = load(base, sh[0]);
+  for (int buf = 0; n > 0; buf ^= 1) {
+    if (!__any_sync(0xffffffffu, any_live(p))) break;
+    // every lane has read the buffer that the next load refills
+    __syncwarp();
+    const int n_next = load(base + n, sh[buf ^ 1]);
+    if (n_next > 0)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    const float* b = sh[buf];
+    bool kept = false;
+    if (lane < n) {                           // the pair this lane loaded
+      const float4 v0 = *reinterpret_cast<const float4*>(b + lane * kSlot);
+      const float4 v1 =
+          *reinterpret_cast<const float4*>(b + lane * kSlot + 4);
+      kept = block_keep<kQuadW, kQuadH>(v0.x, v0.y, v0.z, v0.w, v1.x, v1.y,
+                                        bx0, by0);
+    }
+    // every lane's copies have landed before any lane reads another's slot
+    __syncwarp();
+    for (unsigned m = __ballot_sync(0xffffffffu, kept); m; m &= m - 1) {
+      const float* q = b + (__ffs(m) - 1) * kSlot;
+      const float4 v0 = *reinterpret_cast<const float4*>(q);
+      const float4 v1 = *reinterpret_cast<const float4*>(q + 4);
+      const float4 v2 = *reinterpret_cast<const float4*>(q + 8);
+      blend_pixel(v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w, v2.x, v2.y,
+                  p.px, p.py, p.T[0], p.Cr[0], p.Cg[0], p.Cb[0], p.D[0],
+                  p.done[0]);
+    }
+    base += n;
+    n = n_next;
+  }
+  cp_async_wait<0>();   // no copy may land after the warp has left
+}
+
+// out = C + T * bg and the median depth of p, into instance inst's frame
+// of h_pad x w_pad pixels.
+__device__ __forceinline__ void store_pixels(const QuadPixel& p, int inst,
+                                             int h_pad, int w_pad, float bg0,
+                                             float bg1, float bg2,
+                                             float* rgb, float* depth) {
+  const long long plane = (long long)h_pad * w_pad;
+  const long long pix = (long long)p.py * w_pad + (long long)p.px;
+  float* out = rgb + (long long)inst * 3 * plane + pix;
+  out[0] = p.Cr[0] + p.T[0] * bg0;
+  out[plane] = p.Cg[0] + p.T[0] * bg1;
+  out[2 * plane] = p.Cb[0] + p.T[0] * bg2;
+  depth[(long long)inst * plane + pix] = p.D[0];
 }
 
 }  // namespace tile_blend

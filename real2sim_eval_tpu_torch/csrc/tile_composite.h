@@ -66,25 +66,29 @@ cudaError_t tile_sparse_merge_launch(
     float bg2, float* rgb, float* depth, cudaStream_t stream);
 
 // K4: K1 over 8x16 fine tiles. starts/ends: (n_inst * n_fine_x *
-// n_tiles_y) i32 pair ranges of fine tile ty * n_fine_x + tx; rgb: (n_inst,
-// 3, 8 * n_tiles_y, 16 * n_fine_x) f32 and depth: (n_inst, 8 * n_tiles_y,
-// 16 * n_fine_x) f32, written in full.
+// n_tiles_y) i32 pair ranges of fine tile ty * n_fine_x + tx; order: a
+// permutation of those (instance, fine tile) indices, the order in which
+// CTAs take them; rgb: (n_inst, 3, 8 * n_tiles_y, 16 * n_fine_x) f32 and
+// depth: (n_inst, 8 * n_tiles_y, 16 * n_fine_x) f32, written in full.
 cudaError_t fine_composite_launch(const float* pairs, long long n_pairs,
                                   const int* starts, const int* ends,
-                                  int n_inst, int n_fine_x, int n_tiles_y,
-                                  float bg0, float bg1, float bg2, float* rgb,
-                                  float* depth, cudaStream_t stream);
+                                  const int* order, int n_inst, int n_fine_x,
+                                  int n_tiles_y, float bg0, float bg1,
+                                  float bg2, float* rgb, float* depth,
+                                  cudaStream_t stream);
 
 // K5: K2 over 8x16 fine tiles: for each of the n_dirty entries, fine tile
 // tile_ids[k] of instance inst_ids[k] is re-composited from
 // pairs[starts[k], ends[k]) into rgb and depth (shaped as for K4); every
-// other pixel is left as it is.
+// other pixel is left as it is. order: a permutation of the entries, the
+// order in which CTAs take them.
 cudaError_t fine_sparse_launch(const float* pairs, long long n_pairs,
                                const int* inst_ids, const int* tile_ids,
                                const int* starts, const int* ends,
-                               int n_dirty, int n_inst, int n_fine_x,
-                               int n_tiles_y, float bg0, float bg1, float bg2,
-                               float* rgb, float* depth, cudaStream_t stream);
+                               const int* order, int n_dirty, int n_inst,
+                               int n_fine_x, int n_tiles_y, float bg0,
+                               float bg1, float bg2, float* rgb, float* depth,
+                               cudaStream_t stream);
 
 #ifdef __cplusplus
 }

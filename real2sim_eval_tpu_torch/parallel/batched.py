@@ -419,8 +419,8 @@ class BatchedEvaluator:
         either kernel family: the dirty supertiles on the fine one), wrist
         (n_wrist, B) i32. On the incremental branch ``self.render_stats``
         holds the merged pair count, on the fine family the dirty fine
-        tiles per (fixed camera, env), and the wrist cull's kept blocks per
-        (wrist camera, env)."""
+        tiles per (fixed camera, env), and, where this render culled the
+        wrist, the wrist cull's kept blocks per (wrist camera, env)."""
         st = self.state
         if self.incremental:
             dyn, qpos_new = self.compose_dyn(st, dc_only=self.sh_deg == 0)
@@ -506,6 +506,10 @@ class BatchedEvaluator:
         cameras. ``dyn`` is ``compose_dyn``'s scene. Returns (images (B,
         n_wrist, 3, H, W), depths, binning drops (n_wrist, B) i32)."""
         B = state.rel_pose.shape[0]
+        # the kept-block counts are this render's: a render that does not
+        # cull leaves none behind
+        for key in ("wrist_static_blocks", "wrist_dynamic_blocks"):
+            self.render_stats.pop(key, None)
         eef_rot = tf.quat_to_rot(state.grippers[:, 6:10])
         cams = [(cam, wrist_w2c(eef2c, state.grippers[:, :3], eef_rot))
                 for cam, eef2c in self._wrist_cams]

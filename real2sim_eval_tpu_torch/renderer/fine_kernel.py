@@ -17,7 +17,12 @@ A frame is n_sup_x x n_sup_y wide 8x128 tiles ("supertiles"), each cut
 into GROUPS = 8 fine tiles of 8x16 pixels; fine tile f = ty * (8 n_sup_x)
 + tx covers pixels [16 tx, 16 tx + 16) x [8 ty, 8 ty + 8), so f // 8 is
 its supertile. The blend is the wide compositors' (tile_kernel.py): only
-the tile, and so the 3-sigma rect a splat is cut at, is smaller.
+the tile, and so the 3-sigma rect a splat is cut at, is smaller. Both
+kernels give each warp a QUAD_H x QUAD_W quadrant of the fine tile and let
+it blend only the pairs that ``tile_kernel.block_cull_keep`` keeps for the
+quadrant (the fine binning does not cull by the conic), and their CTAs take
+the fine tiles longest first (``tile_kernel.longest_first``); their frames
+are bitwise the plain versions'.
 
 What the TPU kernel does for its vector unit is not carried over: eight
 fine streams walked in lockstep per program, grouped by length and
@@ -33,9 +38,13 @@ from .. import ext
 from .tile_kernel import (FINE_W, GROUPS, TILE_H, TILE_W, _check,
                           _check_caches, _check_dirty, _check_table,
                           composite_sparse_plain, composite_tiles_plain,
-                          copy_frames)
+                          copy_frames, longest_first)
 
 FINE_H = TILE_H
+# a warp's quadrant of the fine tile in K4 and K5 (csrc/tile_blend.cuh
+# kQuadH, kQuadW)
+QUAD_H = 4
+QUAD_W = 8
 
 
 def rasterize_fine_batch(pairs, fine_starts, fine_ends, n_sup_x: int,
@@ -61,8 +70,9 @@ def rasterize_fine_batch(pairs, fine_starts, fine_ends, n_sup_x: int,
     depth = torch.empty((n_inst, n_sup_y * TILE_H, n_sup_x * TILE_W),
                         dtype=torch.float32, device=pairs.device)
     ext.load().fine_composite(pairs.contiguous(), fine_starts.contiguous(),
-                              fine_ends.contiguous(), n_fine_x, n_sup_y,
-                              bg[0], bg[1], bg[2], rgb, depth)
+                              fine_ends.contiguous(),
+                              longest_first(fine_starts, fine_ends), n_fine_x,
+                              n_sup_y, bg[0], bg[1], bg[2], rgb, depth)
     ext.LAUNCHES["fine_composite"] += 1
     return rgb, depth
 
@@ -104,8 +114,9 @@ def rasterize_fine_sparse(pairs, inst_ids, tile_ids, starts, ends,
     if inst_ids.shape[0]:
         ext.load().fine_sparse(pairs.contiguous(), inst_ids.contiguous(),
                                tile_ids.contiguous(), starts.contiguous(),
-                               ends.contiguous(), n_fine_x, n_sup_y, bg[0],
-                               bg[1], bg[2], rgb, depth)
+                               ends.contiguous(), longest_first(starts, ends),
+                               n_fine_x, n_sup_y, bg[0], bg[1], bg[2], rgb,
+                               depth)
         ext.LAUNCHES["fine_sparse"] += 1
     return rgb, depth
 

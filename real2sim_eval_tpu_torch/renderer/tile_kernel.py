@@ -97,6 +97,15 @@ def _check_caches(device, rgb_cache, depth_cache, n_tiles_x, n_tiles_y,
         raise ValueError("rgb_cache and depth_cache differ in leading dims")
 
 
+def longest_first(starts, ends):
+    """The order in which a kernel's CTAs take its tiles (K8, K4) or
+    dirty-list entries (K5): by falling pair count, ties in index order,
+    as an i32 permutation of the flattened ranges. Sorted on the ranges'
+    device, so it adds no host synchronisation."""
+    return torch.argsort((ends - starts).reshape(-1), descending=True,
+                         stable=True).to(torch.int32)
+
+
 def copy_frames(rgb_cache, depth_cache):
     """(I, 3, Hp, Wp), (I, Hp, Wp) contiguous copies of the cached frames,
     whose leading dims may be broadcast views (one frame per camera)."""
@@ -251,24 +260,26 @@ def composite_tiles_plain(pairs, tile_starts, tile_ends, n_tiles_x: int,
     return rgb, to_image(D)
 
 
-def block_cull_keep(attrs, bx0, by0):
-    """K1's block test in PyTorch (``block_keep`` of csrc/tile_blend.cuh,
-    the same operations in f32), for the tests and chip_smoke.py: False
-    only where the pair of ``attrs`` ((10, ...) f32 lanes [x, y, conic
-    a/b/c, opacity, ...]) adds nothing to any pixel of the 8x16 block whose
-    first pixel is (bx0, by0) (f32 tensors broadcast against attrs[0]):
-    the binning's exact conic cull on the block (``binning._exact_cull_keep``)
-    against 2 ln(255 op) + CULL_ABS + CULL_REL * |a| X^2 + 2 |b| X Y + |c|
-    Y^2, (X, Y) the block's far corner from the splat. A conic that is not
-    positive definite, a non-finite attribute or a negative opacity is
-    always kept."""
+def block_cull_keep(attrs, bx0, by0, box_w: int = BLOCK_W,
+                    box_h: int = TILE_H):
+    """The block test of K1, K2, K6, K7, K8 (8x16 blocks) and K4, K5 (their
+    warp boxes) in PyTorch (``block_keep`` of csrc/tile_blend.cuh, the same
+    operations in f32), for the tests and chip_smoke.py: False only where
+    the pair of ``attrs`` ((10, ...) f32 lanes [x, y, conic a/b/c, opacity,
+    ...]) adds nothing to any pixel of the box of box_h rows x box_w
+    columns whose first pixel is (bx0, by0) (f32 tensors broadcast against
+    attrs[0]): the binning's exact conic cull on the box
+    (``binning._exact_cull_keep``) against 2 ln(255 op) + CULL_ABS +
+    CULL_REL * |a| X^2 + 2 |b| X Y + |c| Y^2, (X, Y) the box's far corner
+    from the splat. A conic that is not positive definite, a non-finite
+    attribute or a negative opacity is always kept."""
     gx, gy, ca, cb, cc, op = (attrs[i] for i in range(6))
     regular = ((ca >= 1e-20) & (cc >= 1e-20) & (ca * cc - cb * cb > 0.0)
                & (op >= 0.0) & torch.isfinite(gx + gy + ca + cb + cc + op))
     lx = bx0 - gx
-    ux = lx + float(BLOCK_W - 1)
+    ux = lx + float(box_w - 1)
     ly = by0 - gy
-    uy = ly + float(TILE_H - 1)
+    uy = ly + float(box_h - 1)
     ica, icc = 1.0 / ca, 1.0 / cc
 
     def q(dx, dy):
@@ -348,11 +359,9 @@ def composite_backward(pairs, tile_starts, tile_ends, dl_rgb, dl_depth,
         return composite_backward_plain(pairs, tile_starts, tile_ends,
                                         dl_rgb, dl_depth, c_fin, t_fin, bg)
     grads = torch.zeros_like(pairs)
-    # the CTAs take the tiles with the most pairs first
-    order = torch.argsort((tile_ends - tile_starts).reshape(-1),
-                          descending=True, stable=True).to(torch.int32)
     ext.load().tile_backward(pairs.contiguous(), tile_starts.contiguous(),
-                             tile_ends.contiguous(), order, n_tiles_x,
+                             tile_ends.contiguous(),
+                             longest_first(tile_starts, tile_ends), n_tiles_x,
                              n_tiles_y, dl_rgb.contiguous(),
                              dl_depth.contiguous(), c_fin.contiguous(),
                              t_fin.contiguous(), bg[0], bg[1], bg[2], grads)

@@ -368,3 +368,26 @@ def test_mixed_resolution_renders_per_env(tmp_path):
     np.testing.assert_allclose(tev.state.qpos7.numpy(),
                                np.asarray(jev.state.qpos7), atol=1e-4)
     assert sum(tev.render_drops().values()) == 0
+
+
+def test_wrist_cull_counts_belong_to_their_render():
+    """The flagship scene, cut small (its "auto" wrist cull stays off): a
+    wrist render with the cull forced on reports its kept static blocks,
+    and the evaluator's next render, which does not cull, reports none
+    rather than the forced render's count."""
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
+    from real2sim_eval_tpu_torch.testing import make_flagship_assets
+
+    a = make_flagship_assets(batch=1, n_table=15000, n_obj_dense=3880,
+                             device="cpu", n_rope=200)
+    ev = TEval(a, [0], device="cpu",
+               raster_config=RasterConfig(incremental="on"))
+    assert ev.wrist_cull["static"] is False
+    dyn, _ = ev.compose_dyn(ev.state, dc_only=True)
+    ev.render_wrist(ev.state, dyn, True, False)
+    kept = ev.render_stats["wrist_static_blocks"]
+    assert 0 < int(kept.max()) <= ev.wrist_cull["total_blocks"]
+    ev.render()
+    assert "wrist_static_blocks" not in ev.render_stats
+    assert "wrist_dynamic_blocks" not in ev.render_stats
+    assert "merged_pairs" in ev.render_stats
