@@ -27,7 +27,18 @@ that must fail the gate. Each kernel's check on a small scene comes first
 versions, with K1's evaluations before and after its per-warp block cull.
 Before the flagship's timed steps, ``ik_graph`` holds the IK solve's CUDA
 graph bitwise to the eager solve (with a stale-input mutant that must
-fail). Every
+fail). After the refinement, the evaluator is built from a config as
+bench.py builds it (``cfg_build``: bench.py's files written by the
+port's fixture writers, a save/load round trip,
+``BatchedEvaluator(cfg, range(64))``, gated on its gaussian and particle
+counts and its grid poses), timed on the default branch
+(``cfg_flagship``), and the single env (``envs.make("BaseEnv-v0")``:
+``GSRenderer`` through K1, ``PhysTwinDynamics`` through K3 at B = 1) is
+held against a one-episode evaluator of the same config
+(``single_env``: particles at every step, frames through the first,
+every step's frame against a reference with the single env's blend,
+its K1 bitwise on captured inputs, its synchronising calls counted).
+Every
 compositor's least time counts only the (pixel, pair) evaluations that
 reach a pixel (``pixel_pair_walks``).
 Every line of standard output is one JSON object (the first holds the
@@ -44,6 +55,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -57,6 +69,9 @@ N_OBJ_DENSE = 30000
 TIMED_STEPS = 20
 TIMED_STEPS_STREAM = 5
 TIMED_STEPS_FINE = 5
+# the config-built flagship (cfg_flagship) and the single env (single_env)
+TIMED_STEPS_CFG = 5
+SINGLE_ENV_STEPS = 3
 # the default path timed once more after the device profiles (main)
 TIMED_STEPS_AFTER = 3
 # step + render samples each stage breakdown averages: one synchronised
@@ -1536,18 +1551,26 @@ def ik_sync_free(ev, actions):
 
 
 def step_render_syncs(ev, actions) -> dict:
-    """One ``step`` and ``render`` of evaluator ev under
-    ``torch.cuda.set_sync_debug_mode("warn")``, each synchronising call
-    counted by the innermost line of the port (or of this script) that
-    made it: {site: count}, most first. The evaluator's state is put back
-    after that step, so later phases see the state sequence of the timed
-    paths alone."""
+    """One ``step`` and ``render`` of evaluator ev with their synchronising
+    calls counted (count_syncs). The evaluator's state is put back after
+    that step, so later phases see the state sequence of the timed paths
+    alone."""
+    st = ev.state
+    try:
+        return count_syncs(lambda: (ev.step(actions), ev.render()))
+    finally:
+        ev.state = st
+
+
+def count_syncs(fn) -> dict:
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``, each
+    synchronising call counted by the innermost line of the port (or of
+    this script) that made it: {site: count}, most first."""
     import traceback
     import warnings
 
     import torch
 
-    st = ev.state
     sites: dict = {}
     root = str(Path(__file__).resolve().parent)
 
@@ -1566,11 +1589,9 @@ def step_render_syncs(ev, actions) -> dict:
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            ev.step(actions)
-            ev.render()
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-            ev.state = st
     return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
 
 
@@ -1865,6 +1886,253 @@ def fine_breakdown(ev_f, actions):
     emit({"phase": "breakdown_fine", "reps": n, "step_ms": step_ms / n,
           "render_ms": render_ms / n,
           "stages_ms": {k: v / n for k, v in acc.items()}})
+
+
+# ---------------------------------------------------------------------------
+# the evaluator and the single env built from a config
+# ---------------------------------------------------------------------------
+
+
+def write_flagship_config(root: Path):
+    """bench.py's flagship files and config (bench.py:72-101), written by
+    the port's own fixture writers: a 1000-particle rope checkpoint (Y =
+    2e3), a 99,000-splat table scan, the rope fleshed out by 30,000 body
+    splats, the clip; grid randomization, bench.py's three 848x480
+    cameras, dt = 5e-5 with self-collision. Returns (cfg, seconds)."""
+    from real2sim_eval_tpu_torch import testing as tt
+
+    t0 = time.perf_counter()
+    rope = tt.make_rope_points(n=1000, length=0.4)
+    tt.write_fixture_checkpoint(root, "bench_rope", rope, spring_Y=2e3)
+    gs = tt.make_synthetic_scene(root / "scans", rope_pts=rope, ik_urdf=None,
+                                 n_table=N_TABLE, n_obj_dense=N_OBJ_DENSE)
+    gs["use_grid_randomization"] = True
+    cfg = tt.full_cfg(root, "bench_rope", gs=gs, cameras=tt.CAMERAS,
+                      physics_over=dict(dt=5e-5, self_collision=True))
+    return cfg, time.perf_counter() - t0
+
+
+def grid_rel_poses(cfg, n: int) -> np.ndarray:
+    """Env i's object pose relative to env 0's, worked out in numpy from
+    the config alone: grid cell i % (xy x theta), the cell's offset added
+    to the pose's translation and its yaw applied before its rotation."""
+    g = cfg.gs.object.grid_randomization
+    pose = np.array(cfg.gs.object.pose, np.float64).reshape(4, 4)
+    poses = []
+    for i in range(n):
+        cell = i % (len(g.xy) * len(g.theta))
+        rx, ry = g.xy[cell // len(g.theta)]
+        a = np.deg2rad(g.theta[cell % len(g.theta)])
+        p = pose.copy()
+        p[:3, 3] += [rx, ry, 0.0]
+        p[:3, :3] = np.array([[np.cos(a), -np.sin(a), 0.0],
+                              [np.sin(a), np.cos(a), 0.0],
+                              [0.0, 0.0, 1.0]]) @ p[:3, :3]
+        poses.append(p)
+    inv0 = np.linalg.inv(poses[0])
+    return np.stack([p @ inv0 for p in poses])
+
+
+def cfg_build(root: Path):
+    """``BatchedEvaluator(cfg, range(64))`` on the card from bench.py's
+    flagship config, after a save_config / load_config round trip. Gates:
+    the loaded config equals the written one; 130,120 gaussians per env
+    (31,000 object, 99,000 table, 120 clip) and 1,000 particles; env i's
+    object pose is grid cell i % 9 (grid_rel_poses, within 1e-6)."""
+    import torch
+
+    from real2sim_eval_tpu_torch.config import load_config, save_config
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+
+    cfg, write_s = write_flagship_config(root)
+    t0 = time.perf_counter()
+    save_config(cfg, root / "cfg" / "flagship.yaml")
+    loaded = load_config(root / "cfg", "flagship")
+    load_s = time.perf_counter() - t0
+    if loaded != cfg:
+        fail("cfg_build: the loaded config differs from the written one")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev = BatchedEvaluator(loaded, list(range(B_FLAGSHIP)), device=DEVICE)
+    sync()
+    build_s = time.perf_counter() - t0
+    a = ev.assets
+    parts = {"object": int(a.obj["means3D"].shape[0]),
+             "table": int(a.table["means3D"].shape[0]),
+             **{k: int(v["means3D"].shape[0])
+                for k, v in a.mesh_params.items()}}
+    rel = ev.state.rel_pose.cpu().numpy().astype(np.float64)
+    rel_err = float(np.abs(rel - grid_rel_poses(loaded, B_FLAGSHIP)).max())
+    out = {"phase": "cfg_build", "envs": B_FLAGSHIP,
+           "write_s": write_s, "save_load_s": load_s, "build_s": build_s,
+           "build_s_per_env": build_s / B_FLAGSHIP,
+           "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+           "gaussians_per_env": sum(parts.values()), "gaussians": parts,
+           "particles": int(ev.state.sm.x.shape[1]),
+           "springs": int(a.params.springs.shape[0]),
+           "substeps": a.opts.num_substeps, "incremental": ev.incremental,
+           "rel_pose_max_err": rel_err,
+           "random_variables_first": ev.random_variables[:2]}
+    emit(out)
+    if parts != {"object": 1000 + N_OBJ_DENSE, "table": N_TABLE,
+                 "clip": 120}:
+        fail(f"cfg_build: the scene has {parts} gaussians")
+    if out["particles"] != 1000 or a.opts.num_substeps != 667:
+        fail(f"cfg_build: {out['particles']} particles, "
+             f"{a.opts.num_substeps} substeps")
+    if rel_err > 1e-6:
+        fail(f"cfg_build: env poses are not the grid cells ({rel_err})")
+    if not ev.incremental:
+        fail("cfg_build: the evaluator does not take the incremental branch")
+    return ev, loaded, build_s
+
+
+def run_cfg_flagship(ev, actions, build_s: float, flagship: dict):
+    """The config-built flagship on the default branch, through run_path
+    and its gates, beside the make_flagship_assets path's numbers."""
+    _, out = run_path("cfg_flagship", ev, actions, TIMED_STEPS_CFG,
+                      ("spring_mass_step", "tile_sparse", "tile_composite"),
+                      build_s)
+    emit({"phase": "cfg_flagship_vs_flagship",
+          "cfg_flagship": {k: out[k] for k in (
+              "env_steps_per_s", "physics_ms", "render_ms",
+              "max_memory_allocated_bytes")},
+          "flagship": {k: flagship[k] for k in (
+              "env_steps_per_s", "physics_ms", "render_ms",
+              "max_memory_allocated_bytes")}})
+
+
+def single_env(cfg, seed: int = 3):
+    """``envs.make("BaseEnv-v0", cfg=cfg, randomize=True)`` on the card:
+    reset(seed), then SINGLE_ENV_STEPS steps of the hold action without
+    velocity control, a get_obs after each; the same episode on
+    ``BatchedEvaluator(cfg, [seed], RasterConfig(incremental="off"))``.
+    Gates: particles within 1e-4 at every step (the JAX suite's
+    single-versus-batch tolerance, tests/test_batched.py:121); the fixed
+    frames within RGB_TOL, depth over 1e-3 counted against flips_limit,
+    after the reset and the first step; K3 and K1 launched by each; the
+    single env's K1 bitwise its plain version on captured inputs. From
+    the second step on both packages' single env blend the last step's
+    particle motion onto the rest splats, the evaluator the motion from
+    the rest bones, so those frames part from the evaluator's (the gap is
+    reported). Every step's fixed frame is therefore also held, at the
+    same tolerances, to a reference with the single env's blend: the
+    evaluator's own composition (``_posed_object``, the IK arm pose, the
+    articulation) rendered from its pre-render state of that step, with
+    its rest bones swapped for the single env's particles of the step
+    before and its particles for the single env's of the step."""
+    import torch
+
+    import real2sim_eval_tpu_torch.envs as envs
+    from real2sim_eval_tpu_torch import ext
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.renderer import raster
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    rot = np.diag([1.0, -1.0, -1.0]).reshape(-1)
+    act = np.concatenate([[0.26, 0.02, 0.38], rot, [0.6]])[None].astype(
+        np.float32)
+    hold = {"action": act, "do_velocity_control": False}
+
+    ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    env = envs.make("BaseEnv-v0", cfg=cfg, randomize=True, device=DEVICE)
+    obs, _ = env.reset(seed=seed)
+    sync()
+    reset_s = time.perf_counter() - t0
+    u = env.unwrapped
+    env_x, env_obs, step_ms, obs_ms = [], [obs], [], []
+    env_x.append(u.physics.current_points.clone())
+    env_bones = [u.renderer.state["x"].clone()]
+    for _ in range(SINGLE_ENV_STEPS):
+        ms, _ = time_host(lambda: env.step(hold))
+        step_ms.append(ms)
+        ms, obs = time_host(u.get_obs)
+        obs_ms.append(ms)
+        env_obs.append(obs)
+        env_x.append(u.physics.current_points.clone())
+        env_bones.append(u.renderer.state["x"].clone())
+    env_launches = dict(ext.LAUNCHES)
+
+    seen, undo = capture(raster, "rasterize_tiles_batch")
+    try:
+        u.get_obs()
+    finally:
+        undo()
+    args = seen["args"]
+    gate_vs_plain("single_env_k1", {"phase": "single_env_k1",
+                                    "pairs": int(args[0].shape[1])},
+                  tk.rasterize_tiles_batch(*args),
+                  tk.composite_tiles_plain(*args),
+                  tk.rasterize_tiles_batch(args[0], args[1], args[1],
+                                           *args[3:]), bitwise=True)
+    sites = count_syncs(lambda: (env.step(hold), u.get_obs()))
+
+    ext.reset_launch_counts()
+    ev = BatchedEvaluator(cfg, [seed], render_off(), device=DEVICE)
+    ev_x, ev_frames = [ev.state.sm.x[0].clone()], [ev.render()]
+    ev_pre = []   # each step's pre-render (grippers, qpos7)
+    for _ in range(SINGLE_ENV_STEPS):
+        ev.step(act, do_velocity_control=False)
+        ev_x.append(ev.state.sm.x[0].clone())
+        ev_pre.append((ev.state.grippers.clone(), ev.state.qpos7.clone()))
+        ev_frames.append(ev.render())
+    ev_launches = dict(ext.LAUNCHES)
+
+    # the reference with the single env's blend: the evaluator's own
+    # composition on the single env's bones of steps k - 1 and k
+    base_assets, base = ev.assets, ev.state
+    blend_frames = [None]
+    for k, (grippers, qpos7) in enumerate(ev_pre, start=1):
+        ev.assets = dataclasses.replace(base_assets, bones0=env_bones[k - 1])
+        ev.state = base.replace(
+            sm=dataclasses.replace(base.sm, x=env_bones[k][None]),
+            grippers=grippers, qpos7=qpos7)
+        blend_frames.append(ev.render())
+    ev.assets, ev.state = base_assets, base
+
+    x_err = [float((e - b).abs().max()) for e, b in zip(env_x, ev_x)]
+    def frame_gap(o, f):
+        return (float((o["image_list"][0] - f[0][0, 0]).abs().max()),
+                int(((o["depth_list"][0] - f[1][0, 0]).abs() > 1e-3).sum()))
+
+    rgb_err, depth_over = map(list, zip(*(
+        frame_gap(o, f) for o, f in zip(env_obs, ev_frames))))
+    blend_rgb_err, blend_depth_over = map(list, zip(*(
+        frame_gap(o, f) for o, f in zip(env_obs[1:], blend_frames[1:]))))
+    limit = flips_limit(env_obs[0]["depth_list"][0].numel())
+    out = {"phase": "single_env", "seed": seed, "steps": SINGLE_ENV_STEPS,
+           "reset_s": reset_s, "step_ms": step_ms, "get_obs_ms": obs_ms,
+           "env_step_ms": float(np.mean(step_ms)),
+           "get_obs_ms_mean": float(np.mean(obs_ms)),
+           "syncs_per_step_and_get_obs": sum(sites.values()),
+           "sync_sites": sites,
+           "particles_max_err": x_err, "fixed_rgb_max_err": rgb_err,
+           "fixed_depth_pixels_over_1e-3": depth_over,
+           "frames_gated_through_step": 1, "depth_flips_limit": limit,
+           "blend_ref_rgb_max_err": blend_rgb_err,
+           "blend_ref_depth_pixels_over_1e-3": blend_depth_over,
+           "launches_single_env": env_launches,
+           "launches_evaluator": ev_launches,
+           "frames_finite": bool(all(
+               torch.isfinite(o["image_list"][0]).all()
+               and torch.isfinite(o["image_wrist_list"][0]).all()
+               for o in env_obs))}
+    emit(out)
+    if max(x_err) > 1e-4:
+        fail(f"single_env: the particles part from the evaluator's: {x_err}")
+    if max(rgb_err[:2]) > RGB_TOL or max(depth_over[:2]) > limit:
+        fail(f"single_env: the fixed frames part from the evaluator's: "
+             f"{rgb_err} {depth_over}")
+    if max(blend_rgb_err) > RGB_TOL or max(blend_depth_over) > limit:
+        fail(f"single_env: the fixed frames part from the reference with "
+             f"the single env's blend: {blend_rgb_err} {blend_depth_over}")
+    if not out["frames_finite"]:
+        fail("single_env: frames are not finite")
+    for name in ("spring_mass_step", "tile_composite"):
+        if env_launches[name] < 1 or ev_launches[name] < 1:
+            fail(f"single_env: {name} was not launched")
 
 
 def device_profiles(runs) -> None:
@@ -2560,6 +2828,12 @@ def main() -> int:
     del ev_s
     launches_r, k7_args, k8_args, refine_five, iter_ms = run_refinement()
     kernels += measure_refine_kernels(launches_r, k7_args, k8_args)
+    with tempfile.TemporaryDirectory() as root:
+        ev_c, cfg, build_s = cfg_build(Path(root))
+        run_cfg_flagship(ev_c, actions, build_s, flagship)
+        del ev_c
+        torch.cuda.empty_cache()
+        single_env(cfg)
     ik_target = ik_targets(ev, actions)["mimic"]
     device_profiles([
         # one graphed IK solve (copy in, replay, clone out)

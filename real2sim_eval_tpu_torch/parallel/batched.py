@@ -29,9 +29,9 @@ and one render, on one of the JAX package's three branches:
     than one resolution): the whole scene of each env through
     ``rasterize``, one camera at a time.
 
-Scene assets come in as ``BatchedAssets`` (see convert.py and testing.py);
-the host-side asset build of the JAX package (envs, loaders) is not part
-of this module.
+The evaluator is built from a config and episode ids, as the JAX one is
+(``parallel/assets.py`` resets one ``BaseEnv`` per episode), or from
+ready ``BatchedAssets`` (convert.py, testing.py).
 """
 
 from __future__ import annotations
@@ -104,14 +104,28 @@ class BatchedAssets:
     fps: float
     do_velocity_control: bool
     state: BatchedState            # initial state
+    # per episode, from a config build: randomization draws and the
+    # world-posed static meshes (the success calculators' schema)
+    random_variables: list | None = None
+    static_mesh_dumps: list | None = None
 
 
 class BatchedEvaluator:
-    """Build once from BatchedAssets, then step/render all envs batched."""
+    """Build once from a config (or ready BatchedAssets) and the episode
+    ids, then step/render all envs batched."""
 
-    def __init__(self, assets: BatchedAssets, episode_ids,
+    def __init__(self, cfg_or_assets, episode_ids,
                  raster_config: RasterConfig | None = None, device="cuda"):
         self.device = resolve_device(device)
+        self.cfg = None
+        if isinstance(cfg_or_assets, BatchedAssets):
+            assets = cfg_or_assets
+        else:
+            from .assets import build_assets
+
+            self.cfg = cfg_or_assets
+            assets = build_assets(self.cfg, list(episode_ids), raster_config,
+                                  self.device)
         if assets.bones0.device.type != self.device.type:
             raise ValueError(f"assets live on {assets.bones0.device}, the "
                              f"evaluator runs on {self.device}")
@@ -124,6 +138,7 @@ class BatchedEvaluator:
             raise ValueError("episode_ids do not match the assets' batch")
         self.raster_config = raster_config or RasterConfig()
         self.state = assets.state
+        self.random_variables = assets.random_variables
         self.render_telemetry = None
 
         a = assets
@@ -593,3 +608,70 @@ class BatchedEvaluator:
     def particle_states(self) -> np.ndarray:
         """(B, N, 3) world-frame particles (for success metrics)."""
         return (self.state.sm.x - self.assets.global_translation).cpu().numpy()
+
+    def get_state_dumps(self):
+        """Per-env state dicts in the success calculators' schema."""
+        xs = self.particle_states()
+        springs = self.assets.params.springs.cpu().numpy()
+        dumps = (self.assets.static_mesh_dumps
+                 or [[] for _ in range(self.batch_size)])
+        return [{"renderer": {"x": xs[i]},
+                 "physics": {"static_meshes": dumps[i],
+                             "init_springs": springs}}
+                for i in range(self.batch_size)]
+
+    # ------------------------------------------------------------------
+    # snapshot / resume mid-episode
+    # ------------------------------------------------------------------
+
+    def save_state(self, path, extra: dict | None = None):
+        """Snapshot the batched state to ``path`` as a pickle of numpy
+        arrays, atomically (write, then rename). ``extra`` rides along
+        for the caller's bookkeeping."""
+        import os
+        import pickle
+
+        tmp = str(path) + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump({"episode_ids": self.episode_ids,
+                         "state": _state_to_numpy(self.state),
+                         "extra": extra or {}}, f)
+        os.replace(tmp, path)
+
+    def load_state(self, path) -> dict:
+        """Restore a snapshot of ``save_state`` (same episode ids and
+        config); returns its ``extra`` dict."""
+        import pickle
+
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        if blob["episode_ids"] != self.episode_ids:
+            raise ValueError("snapshot belongs to different episodes")
+        self.state = _state_from_numpy(blob["state"], self.device)
+        return blob.get("extra", {})
+
+
+def _state_to_numpy(state: BatchedState) -> dict:
+    """BatchedState -> {"sm/x": array, ..., "step": int}."""
+    out = {"step": int(state.step)}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            for g in dataclasses.fields(v):
+                t = getattr(v, g.name)
+                if t is not None:
+                    out[f"{f.name}/{g.name}"] = t.cpu().numpy()
+        elif torch.is_tensor(v):
+            out[f.name] = v.cpu().numpy()
+    return out
+
+
+def _state_from_numpy(tree: dict, device) -> BatchedState:
+    def sub(prefix):
+        return {k.split("/", 1)[1]: torch.as_tensor(v, device=device)
+                for k, v in tree.items() if k.startswith(prefix + "/")}
+    return BatchedState(
+        sm=SpringMassState(**sub("sm")), grasp=GraspState(**sub("grasp")),
+        step=int(tree["step"]),
+        **{k: torch.as_tensor(v, device=device) for k, v in tree.items()
+           if "/" not in k and k != "step"})

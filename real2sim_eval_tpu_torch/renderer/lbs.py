@@ -13,6 +13,7 @@ import torch
 
 K_REL = 8       # bone-graph neighbours
 K_WGT = 16      # bones blended per particle
+K_REL_SIMPLE = 16  # bones blended per point on the non-LBS path
 
 
 def _pairwise_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -120,3 +121,16 @@ def interpolate_motions(bones, motions, relations, weights, weights_indices,
         moved = (R_sel * local[..., None, :]).sum(-1) + b_sel + m_sel
         out.append((moved * weights[None, ..., None]).sum(2))
     return torch.cat(out)
+
+
+def simple_weights(bones: torch.Tensor, pts: torch.Tensor,
+                   k: int = K_REL_SIMPLE, chunk: int = 4096):
+    """The non-LBS path (``use_lbs: false``): a pure inverse-distance blend
+    of bone positions, no rotations. Same (weights, indices) layout."""
+    return knn_weights(bones, pts, k=k, chunk=chunk)
+
+
+def simple_apply(weights, indices, bones_pred):
+    """xyz = sum_k w_k * bones_pred[..., idx_k, :]; ``bones_pred`` may carry
+    leading env dims."""
+    return (weights[..., None] * bones_pred[..., indices.long(), :]).sum(-2)

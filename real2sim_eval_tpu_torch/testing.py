@@ -1,27 +1,42 @@
-"""The flagship benchmark scene, generated in numpy alone.
+"""Synthetic scenes and checkpoints for the tests and the card run.
 
-``make_flagship_assets`` builds the kind of scene the JAX package's
-bench.py evaluates, without its host asset build (PLY/checkpoint/config
-loaders): a 1000-particle rope (springs from ``connect_springs``,
-Y = 2e3) fleshed out by ``n_obj_dense`` LBS-driven body splats, a table
-scan of ``n_table`` splats, a 120-splat box clip that is also a static SDF
-collider, two finger colliders from the built-in ``simple_arm.urdf``,
-grid-randomized per-env object poses, dt = 5e-5 (667 substeps at 30 Hz)
-with self-collision, and bench.py's three 848x480 cameras. It feeds the
-card run; it need not equal the JAX build bit for bit.
+Two builders, both numpy alone:
+
+- the fixture writers (``make_rope_points``, ``write_fixture_checkpoint``,
+  ``physics_cfg``, ``env_cfg``, ``full_cfg``, ``make_synthetic_scene``,
+  ``TEST_CAMERAS``), counterparts of the JAX package's testing.py: they
+  write a PhysTwin checkpoint, splat PLYs, a link mask and a clip mesh,
+  and return the config that ``BatchedEvaluator(cfg, ...)`` and
+  ``envs.make("BaseEnv-v0", cfg=...)`` build from;
+- ``make_flagship_assets``, which builds the flagship scene's
+  ``BatchedAssets`` directly, without the config build: a 1000-particle
+  rope (springs from ``connect_springs``, Y = 2e3) fleshed out by
+  ``n_obj_dense`` LBS-driven body splats, a table scan of ``n_table``
+  splats, a 120-splat box clip that is also a static SDF collider, the
+  finger colliders of the built-in ``simple_arm.urdf`` (tables from
+  ``RobotModel``), grid-randomized per-env object poses, dt = 5e-5 (667
+  substeps at 30 Hz) with self-collision, and bench.py's three 848x480
+  cameras. It need not equal the config build bit for bit.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
+from .config import ConfigNode
 from .convert import assets_from_numpy
 from .kinematics.chain import KinematicChain
+from .kinematics.robot import CANONICAL_ARM_QPOS, RobotModel
+from .physics import checkpoints as ckpt_io
 from .physics.sdf import build_sdf_grid
 from .physics.topology import build_neighbor_tables, connect_springs
+from .renderer.scene import (XARM_GRIPPER_LINK_IDS, apply_random_pose,
+                             grid_random_values, transform_params_by_pose)
 from .utils.mesh import make_box
 from .utils.sh import C0
-from .utils.urdf import BUILTIN_URDF, load_urdf, resolve_geometry
+from .utils.urdf import BUILTIN_URDF
 
 _INTR = [427.3, 0.0, 430.0, 0.0, 426.8, 242.8, 0.0, 0.0, 1.0]
 # bench.py's cameras: two fixed side views and the wrist view
@@ -36,42 +51,235 @@ CAMERAS = [
          c2w=[-0.006, -1.0, -0.024, 0.07, 1.0, -0.006, -0.010, -0.006,
               0.010, -0.024, 1.0, 0.031, 0.0, 0.0, 0.0, 1.0]),
 ]
-CANONICAL_ARM_QPOS = np.array([0, -45, 0, 30, 0, 75, 0]) * np.pi / 180.0
-GRIPPER_LINK_IDS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 13, 14, 15, 16)
+# the small cameras of the CPU tests: one fixed, one wrist, 64x128
+TEST_CAMERAS = [
+    dict(type="side", h=64, w=128,
+         intr=[60.0, 0.0, 64.0, 0.0, 60.0, 32.0, 0.0, 0.0, 1.0],
+         c2w=[0.005, 0.613, -0.790, 0.883, 1.0, -0.004, 0.004, 0.054,
+              -0.001, -0.790, -0.613, 0.398, 0.0, 0.0, 0.0, 1.0]),
+    dict(type="wrist", h=64, w=128,
+         intr=[60.0, 0.0, 64.0, 0.0, 60.0, 32.0, 0.0, 0.0, 1.0],
+         c2w=[-0.006, -1.0, -0.024, 0.07, 1.0, -0.006, -0.010, -0.006,
+              0.010, -0.024, 1.0, 0.031, 0.0, 0.0, 0.0, 1.0]),
+]
+GRIPPER_LINK_IDS = XARM_GRIPPER_LINK_IDS
 FINGER_LINKS = ("left_finger", "right_finger")
 GRID_XY = [[-0.05, -0.05], [0.0, 0.0], [0.05, 0.05]]
 GRID_THETA = [-10, 0, 10]
 
 
 def make_rope_points(n=200, length=0.5, jitter=0.002, seed=0):
+    """A slightly jittered rope: a line of points with small noise."""
     rng = np.random.default_rng(seed)
     t = np.linspace(0, length, n)
     pts = np.stack([t, np.zeros(n), np.zeros(n)], axis=-1)
-    return pts + rng.normal(scale=jitter, size=pts.shape)
+    pts += rng.normal(scale=jitter, size=pts.shape)
+    return pts.astype(np.float64)
 
 
-def _rz_pose(pose, rx, ry, ang):
-    pose = np.array(pose, np.float64)
-    pose[:3, 3] += [rx, ry, 0.0]
-    c, s = np.cos(ang), np.sin(ang)
-    pose[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]) @ pose[:3, :3]
-    return pose
+# ---------------------------------------------------------------------------
+# fixture writers: checkpoint, configs, splat scene
+# ---------------------------------------------------------------------------
 
 
-def _rot_to_quat_np(R):
-    w = np.sqrt(np.maximum(1 + R[0, 0] + R[1, 1] + R[2, 2], 1e-12)) / 2
-    return np.array([w, (R[2, 1] - R[1, 2]) / (4 * w),
-                     (R[0, 2] - R[2, 0]) / (4 * w),
-                     (R[1, 0] - R[0, 1]) / (4 * w)])
+def write_fixture_checkpoint(root, case_name, points, radius=0.02,
+                             max_neighbours=30, spring_Y=3e4, **kwargs):
+    """Connect springs as the loader will, then write a checkpoint tree
+    whose num_object_springs matches."""
+    # connect on the float32 points the loader reads back (regular grids
+    # have distance ties whose order is dtype-sensitive)
+    points = np.asarray(points, np.float32)
+    springs, _ = connect_springs(points, radius, max_neighbours)
+    ckpt_io.write_phystwin_checkpoint(
+        root, case_name, object_points=points,
+        surface_points=np.zeros((0, 3)), interior_points=np.zeros((0, 3)),
+        spring_Y=np.full(len(springs), spring_Y, np.float32),
+        num_object_springs=len(springs), **kwargs)
+    return springs
 
 
-def _quat_mul_np(a, b):
-    w1, x1, y1, z1 = a
-    w2, x2, y2, z2 = b[:, 0], b[:, 1], b[:, 2], b[:, 3]
-    return np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
-                     w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
-                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
-                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], -1)
+def physics_cfg(**overrides):
+    """A physics config with cfg/physics/default.yaml's defaults."""
+    base = dict(
+        ckpt_path=None, case_name=None, use_graph=True,
+        fps=30, dt=5e-5, num_substeps=667, duration=30,
+        dashpot_damping=100, drag_damping=3,
+        init_spring_Y=3e4, spring_Y_min=0, spring_Y_max=1e5,
+        object_radius=0.02, object_max_neighbours=30,
+        controller_radius=0.04, controller_max_neighbours=50,
+        collide_elas=0.5, collide_fric=0.3,
+        collide_self_elas=0.5, collide_self_fric=0.3,
+        collide_eef_elas=0.0, collide_eef_fric=1.0,
+        collision_requires_grad=True, self_collision=True,
+        collision_dist=0.005, reverse_z=False,
+        icp_threshold=0.02, use_lbs=True, precompute_relations=True,
+        table_height=0.0, grasp_force_threshold=3e4,
+        visualize_mesh_points=False, visualize_phystwin_points=False,
+        visualize_eef_points=False,
+    )
+    base.update(overrides)
+    return ConfigNode(base)
+
+
+def env_cfg(use_pusher=False, urdf=None, **overrides):
+    base = dict(
+        sim=dict(frame_rate=30, duration=30),
+        robot=dict(type="xarm", use_pusher=use_pusher, n_grippers=1, n_qpos=7,
+                   init_gripper_openness=800,
+                   init_eef_xyz=[0.2568, 0.0, 0.4005],
+                   do_velocity_control=True),
+        urdf=urdf or dict(
+            ik_urdf_path=BUILTIN_URDF,
+            collision_urdf_path=BUILTIN_URDF,
+            collision_link_names=["left_finger", "right_finger"],
+        ),
+        cameras=[],
+    )
+    base.update(overrides)
+    return ConfigNode(base)
+
+
+def full_cfg(ckpt_path, case_name, use_pusher=False, physics_over=None,
+             gs=None, cameras=None, urdf=None):
+    cfg = ConfigNode(dict(
+        seed=0,
+        online=False,
+        env_name="BaseEnv-v0",
+        obs_mode="rgbd",
+        exp_root="log/experiments",
+        physics=physics_cfg(ckpt_path=str(ckpt_path), case_name=case_name,
+                            **(physics_over or {})).to_dict(),
+        env=env_cfg(use_pusher=use_pusher, urdf=urdf).to_dict(),
+        gs=gs if gs is not None else dict(use_shs=False,
+                                          use_grid_randomization=False),
+        renderer=dict(gs_center=[0.3, 0.0, 0.0], gs_distance=0.8,
+                      gs_azimuth=160, gs_elevation=20),
+    ))
+    if cameras is not None:
+        cfg.env.cameras = cameras
+    return cfg
+
+
+def _splat_params(pts, colors, scale=0.004, opacity=4.0):
+    """Raw (pre-activation) splat params of the given points / colours."""
+    n = len(pts)
+    sh = np.zeros((n, 48), np.float32)
+    sh[:, :3] = (np.asarray(colors, np.float32) - 0.5) / C0
+    return {
+        "means3D": np.asarray(pts, np.float32),
+        "sh_colors": sh,
+        "log_scales": np.full((n, 3), np.log(scale), np.float32),
+        "unnorm_rotations": np.tile(np.array([[1, 0, 0, 0]], np.float32),
+                                    (n, 1)),
+        "logit_opacities": np.full((n, 1), opacity, np.float32),
+    }
+
+
+def make_synthetic_scene(root, rope_pts=None, ik_urdf=None, seed=0,
+                         n_table=400,
+                         table_extent=((-0.2, 0.8), (-0.5, 0.5)),
+                         n_obj_dense=0):
+    """Write object.ply / scene.ply + mask / clip mesh + splats and return
+    a gs config dict with cfg/gs/rope.yaml's schema."""
+    from .utils.gs_processor import GSProcessor
+    from .utils.mesh import save_obj
+    from .utils.ply import save_gaussian_ply
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    # object: a rope of red splats at the origin (posed by the config);
+    # the first len(pts) splats stay the sim particles (the LBS bones), the
+    # dense body splats ride the same LBS
+    pts = (make_rope_points(n=300, length=0.3, seed=seed) if rope_pts is None
+           else rope_pts)
+    colors = np.tile([[0.8, 0.1, 0.1]], (len(pts), 1))
+    if n_obj_dense:
+        seg = rng.integers(0, len(pts) - 1, n_obj_dense)
+        t = rng.uniform(0.0, 1.0, (n_obj_dense, 1))
+        core = pts[seg] * (1.0 - t) + pts[seg + 1] * t
+        dense = core + rng.normal(scale=0.008, size=core.shape)
+        dcol = np.clip([[0.8, 0.1, 0.1]]
+                       + rng.normal(scale=0.06, size=(n_obj_dense, 3)),
+                       0.0, 1.0)
+        pts = np.concatenate([pts, dense])
+        colors = np.concatenate([colors, dcol])
+    save_gaussian_ply(_splat_params(pts, colors), root / "object.ply")
+
+    # scene: a table plane (mask 0) + robot splats on the link origins;
+    # splat size tracks density (plane area / count, with a floor)
+    nt = n_table
+    (x0, x1), (y0, y1) = table_extent
+    table_pts = np.stack([rng.uniform(x0, x1, nt), rng.uniform(y0, y1, nt),
+                          np.zeros(nt)], -1)
+    table_scale = float(np.clip(np.sqrt((x1 - x0) * (y1 - y0) / nt) * 0.2,
+                                0.0035, 0.01))
+    scene_parts = [_splat_params(table_pts,
+                                 np.tile([[0.4, 0.35, 0.3]], (nt, 1)),
+                                 scale=table_scale)]
+    masks = [np.zeros(nt, np.int32)]
+    if ik_urdf is not None:
+        robot = RobotModel(ik_urdf)
+        q = np.concatenate([CANONICAL_ARM_QPOS,
+                            np.full(robot.chain.n_dof - 7,
+                                    (800.0 - 750.0) * 0.001)])
+        fk = robot.fk_numpy(q)
+        link_ids = [i for i in XARM_GRIPPER_LINK_IDS
+                    if i < len(robot.chain.link_names)]
+        per_link = 20
+        pts_r, ids_r = [], []
+        for lid in link_ids:
+            pts_r.append(fk[lid][:3, 3]
+                         + rng.normal(scale=0.01, size=(per_link, 3)))
+            ids_r.append(np.full(per_link, lid, np.int32))
+        scene_parts.append(_splat_params(
+            np.concatenate(pts_r),
+            np.tile([[0.8, 0.8, 0.8]], (per_link * len(link_ids), 1))))
+        masks.append(np.concatenate(ids_r))
+    save_gaussian_ply(GSProcessor().merge(scene_parts), root / "scene.ply")
+    np.save(root / "scene_mask.npy", np.concatenate(masks))
+
+    # attached mesh: a box "clip" with its own splats
+    clip = make_box((0.03, 0.03, 0.05), center=(0.0, 0.0, 0.025))
+    save_obj(clip, root / "clip.obj")
+    save_gaussian_ply(_splat_params(clip.sample_surface(120, rng),
+                                    np.tile([[0.1, 0.1, 0.9]], (120, 1))),
+                      root / "clip_splat.ply")
+
+    return dict(
+        use_shs=False,
+        use_grid_randomization=False,
+        scene=dict(table_splat_path=str(root / "scene.ply"),
+                   total_mask_path=str(root / "scene_mask.npy")),
+        object=dict(
+            path=str(root / "object.ply"),
+            pose=[1.0, 0.0, 0.0, 0.15,
+                  0.0, 1.0, 0.0, 0.0,
+                  0.0, 0.0, 1.0, 0.02,
+                  0.0, 0.0, 0.0, 1.0],
+            translation_range=[-0.05, 0.05, -0.05, 0.05, 0.0, 0.0],
+            azimuth_range=[-10, 10],
+            grid_randomization=dict(xy=GRID_XY, theta=GRID_THETA,
+                                    one_to_one=False),
+        ),
+        meshes=[dict(
+            name="clip",
+            splat_path=str(root / "clip_splat.ply"),
+            mesh_path=str(root / "clip.obj"),
+            pose=[1.0, 0.0, 0.0, 0.5,
+                  0.0, 1.0, 0.0, 0.05,
+                  0.0, 0.0, 1.0, 0.0,
+                  0.0, 0.0, 0.0, 1.0],
+            translation_range=[0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+            azimuth_range=[0, 0],
+        )],
+    )
+
+
+# ---------------------------------------------------------------------------
+# the flagship's BatchedAssets, built directly
+# ---------------------------------------------------------------------------
 
 
 def _splats(pts, colors, scale, logit_opacity=4.0):
@@ -96,28 +304,16 @@ def _chain_tree(chain: KinematicChain) -> dict:
             "chain/upper": chain.upper}
 
 
-def _finger_tables(urdf, chain: KinematicChain):
-    """SDF source meshes, openness pose table (F, 101, 4, 4) and centroids
-    of the two finger colliders, plus every link's collision offset."""
-    offsets, meshes, prev = {}, {}, np.eye(4)
-    for link in urdf.links:
-        if link.collisions:
-            spec, prev = link.collisions[0]
-            if link.name in FINGER_LINKS:
-                meshes[link.name] = resolve_geometry(spec)
-        offsets[link.name] = prev.copy()
-    eef = chain.link_index("link_eef")
-    table = np.zeros((len(FINGER_LINKS), 101, 4, 4))
-    for s in range(101):
-        ang = 0.8 * (1.0 - s / 100.0)
-        q = np.concatenate([CANONICAL_ARM_QPOS,
-                            np.full(chain.n_dof - 7, ang)])
-        fk = chain.fk_numpy(q)
-        T_ew = np.linalg.inv(fk[eef])
-        for f, name in enumerate(FINGER_LINKS):
-            table[f, s] = T_ew @ fk[chain.link_index(name)] @ offsets[name]
-    centroids = np.stack([meshes[n].vertices.mean(0) for n in FINGER_LINKS])
-    return meshes, table, centroids, offsets
+def _finger_tables():
+    """The finger colliders' meshes, openness pose table (F, 101, 4, 4)
+    and centroids, from ``RobotModel``, plus the arm's ``RobotModel`` (its
+    collision offsets pose the robot splats)."""
+    arm = RobotModel(BUILTIN_URDF)
+    fingers = RobotModel(BUILTIN_URDF, link_names=list(FINGER_LINKS))
+    table = fingers.finger_pose_table(list(FINGER_LINKS))
+    centroids = np.stack([fingers.meshes[n].vertices.mean(0)
+                          for n in FINGER_LINKS])
+    return fingers.meshes, table, centroids, arm
 
 
 def make_flagship_assets(batch: int = 64, n_table: int = 99000,
@@ -146,19 +342,10 @@ def make_flagship_assets(batch: int = 64, n_table: int = 99000,
     obj = _splats(pts, colors, 0.004)
     pose0 = np.eye(4)
     pose0[:3, 3] = [0.15, 0.0, 0.02]
-    poses = []
-    for i in range(batch):
-        cell = i % (len(GRID_XY) * len(GRID_THETA))
-        rx, ry = GRID_XY[cell // len(GRID_THETA)]
-        ang = GRID_THETA[cell % len(GRID_THETA)] * np.pi / 180.0
-        poses.append(_rz_pose(pose0, rx, ry, ang))
-    R0 = poses[0][:3, :3].astype(np.float32)
-    obj_env0 = dict(obj)
-    obj_env0["means3D"] = obj["means3D"] @ R0.T + poses[0][:3, 3].astype(
-        np.float32)
-    obj_env0["rotations"] = _quat_mul_np(
-        _rot_to_quat_np(R0).astype(np.float32),
-        obj["rotations"]).astype(np.float32)
+    poses = [apply_random_pose(pose0, grid_random_values(
+        i % (len(GRID_XY) * len(GRID_THETA)), GRID_XY, GRID_THETA, False))
+        for i in range(batch)]
+    obj_env0 = transform_params_by_pose(obj, poses[0])
     for k, v in obj_env0.items():
         tree[f"obj/{k}"] = v
     tree["bones0"] = obj_env0["means3D"][:n_rope]
@@ -194,9 +381,8 @@ def make_flagship_assets(batch: int = 64, n_table: int = 99000,
                  "opts/collision_dist": collision_dist})
 
     # ---- colliders: two fingers + the clip box ---------------------------
-    urdf = load_urdf(BUILTIN_URDF)
-    chain = KinematicChain.from_urdf(urdf)
-    meshes, table, centroids, offsets = _finger_tables(urdf, chain)
+    meshes, table, centroids, arm = _finger_tables()
+    chain = arm.chain
     for f, name in enumerate(FINGER_LINKS):
         g = build_sdf_grid(meshes[name])
         tree.update({f"colliders/fingers/{f}/origin": g.origin.numpy(),
@@ -230,7 +416,7 @@ def make_flagship_assets(batch: int = 64, n_table: int = 99000,
     tree.update(_chain_tree(chain))
     link_ids = tuple(i for i in GRIPPER_LINK_IDS if i < len(chain.link_names))
     base_q = np.concatenate([CANONICAL_ARM_QPOS, np.zeros(chain.n_dof - 7)])
-    art = RobotArticulation.build(chain, link_ids, base_q, offsets, "cpu")
+    art = RobotArticulation.build(arm, link_ids, base_q, device="cpu")
     tree.update({"articulation/link_ids": np.asarray(link_ids),
                  "articulation/base_inv": art.base_inv.numpy(),
                  "articulation/offsets": art.offsets.numpy(),

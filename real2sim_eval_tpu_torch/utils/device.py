@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,10 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions of the kernels")
     return dev
+
+
+def to_numpy(a) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    if torch.is_tensor(a):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

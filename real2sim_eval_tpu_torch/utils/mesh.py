@@ -1,14 +1,16 @@
-"""Triangle meshes on the host (numpy): the part the port's SDF build and
-URDF primitives need.
+"""Triangle meshes on the host (numpy): loading, sampling, transforms.
 
-Counterpart of the ``TriMesh`` / ``make_box`` / ``make_sphere`` /
-``sample_surface`` part of the JAX package's utils/mesh.py, same sampling
-order so a seeded build gives the same samples.
+Counterpart of the JAX package's utils/mesh.py: ``TriMesh``, the
+primitives, the OBJ / STL / PLY loaders, ``merge_meshes`` and
+``save_obj``, with the same sampling order so a seeded build gives the
+same samples.
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -17,6 +19,28 @@ import numpy as np
 class TriMesh:
     vertices: np.ndarray  # (V, 3) float32
     faces: np.ndarray     # (F, 3) int32
+
+    def copy(self) -> "TriMesh":
+        return TriMesh(self.vertices.copy(), self.faces.copy())
+
+    @property
+    def triangles(self) -> np.ndarray:
+        """open3d-compatible alias of ``faces``."""
+        return self.faces
+
+    def transform(self, T: np.ndarray) -> "TriMesh":
+        """Apply a 4x4 transform in place; returns self (open3d-style)."""
+        self.vertices = (self.vertices @ np.asarray(T[:3, :3]).T
+                         + np.asarray(T[:3, 3]))
+        return self
+
+    def translated(self, t: np.ndarray) -> "TriMesh":
+        return TriMesh(self.vertices + np.asarray(t, np.float32), self.faces)
+
+    def scale(self, s: float, center=(0.0, 0.0, 0.0)) -> "TriMesh":
+        c = np.asarray(center, np.float32)
+        self.vertices = (self.vertices - c) * float(s) + c
+        return self
 
     def _cross(self) -> np.ndarray:
         v, f = self.vertices, self.faces
@@ -51,6 +75,16 @@ class TriMesh:
             return (pts.astype(np.float32),
                     self.face_normals()[fidx].astype(np.float32))
         return pts.astype(np.float32)
+
+
+def merge_meshes(meshes: list[TriMesh]) -> TriMesh:
+    verts, faces, off = [], [], 0
+    for m in meshes:
+        verts.append(m.vertices)
+        faces.append(m.faces + off)
+        off += len(m.vertices)
+    return TriMesh(np.concatenate(verts, 0).astype(np.float32),
+                   np.concatenate(faces, 0).astype(np.int32))
 
 
 def make_box(extents=(1.0, 1.0, 1.0), center=(0.0, 0.0, 0.0)) -> TriMesh:
@@ -113,3 +147,145 @@ def make_cylinder(radius: float, length: float, n: int = 24) -> TriMesh:
         faces += [[i, j, n + i], [j, n + j, n + i],
                   [cb, j, i], [ct, n + i, n + j]]
     return TriMesh(verts.astype(np.float32), np.asarray(faces, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# file loading
+# ---------------------------------------------------------------------------
+
+
+def load_mesh(path: str | Path) -> TriMesh:
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix == ".obj":
+        return load_obj(path)
+    if suffix == ".stl":
+        return load_stl(path)
+    if suffix == ".ply":
+        return load_ply_mesh(path)
+    raise ValueError(f"unsupported mesh format: {path}")
+
+
+def load_obj(path: str | Path) -> TriMesh:
+    verts: list[list[float]] = []
+    faces: list[list[int]] = []
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]),
+                              float(parts[3])])
+            elif line.startswith("f "):
+                idx = [int(tok.split("/")[0]) for tok in line.split()[1:]]
+                idx = [i - 1 if i > 0 else len(verts) + i for i in idx]
+                for k in range(1, len(idx) - 1):  # fan-triangulate
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return TriMesh(np.asarray(verts, np.float32), np.asarray(faces, np.int32))
+
+
+def _weld(tri_verts: np.ndarray) -> TriMesh:
+    """Per-triangle corners -> shared vertices (an STL has no index)."""
+    verts, inverse = np.unique(tri_verts.round(7), axis=0,
+                               return_inverse=True)
+    return TriMesh(verts.astype(np.float32),
+                   inverse.reshape(-1, 3).astype(np.int32))
+
+
+def load_stl(path: str | Path) -> TriMesh:
+    with open(path, "rb") as f:
+        head = f.read(80)
+        rest = f.read()
+    if head[:5].lower() == b"solid" and b"facet" in rest[:500]:
+        return _load_stl_ascii(path)
+    (n_tri,) = struct.unpack("<I", rest[:4])
+    record = np.dtype([("n", "<f4", 3), ("v", "<f4", (3, 3)),
+                       ("attr", "<u2")])
+    body = np.frombuffer(rest[4:4 + record.itemsize * n_tri], dtype=record,
+                         count=n_tri)
+    return _weld(body["v"].reshape(-1, 3))
+
+
+def _load_stl_ascii(path) -> TriMesh:
+    tri_verts = []
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            tokens = line.split()
+            if tokens and tokens[0] == "vertex":
+                tri_verts.append([float(tokens[1]), float(tokens[2]),
+                                  float(tokens[3])])
+    return _weld(np.asarray(tri_verts, np.float32))
+
+
+def load_ply_mesh(path: str | Path) -> TriMesh:
+    """Minimal ascii / binary PLY mesh reader (vertex + face list)."""
+    from .ply import _PLY_TO_NP
+
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError("not a PLY")
+        fmt = None
+        elements = []
+        props: list = []
+        while True:
+            tokens = f.readline().decode("ascii", "replace").strip().split()
+            if not tokens:
+                continue
+            if tokens[0] == "format":
+                fmt = tokens[1]
+            elif tokens[0] == "element":
+                props = []
+                elements.append((tokens[1], int(tokens[2]), props))
+            elif tokens[0] == "property":
+                props.append(tokens)
+            elif tokens[0] == "end_header":
+                break
+        endian = "<" if fmt and "little" in fmt else ">"
+        verts = faces = None
+        for name, count, props in elements:
+            if name == "vertex":
+                if fmt == "ascii":
+                    data = np.loadtxt(f, max_rows=count, dtype=np.float64)
+                    verts = np.atleast_2d(data)[:, :3].astype(np.float32)
+                else:
+                    dtype = np.dtype([(p[2], endian + _PLY_TO_NP[p[1]])
+                                      for p in props])
+                    tab = np.frombuffer(f.read(dtype.itemsize * count),
+                                        dtype=dtype)
+                    verts = np.stack([tab["x"], tab["y"], tab["z"]],
+                                     -1).astype(np.float32)
+            elif name == "face":
+                faces_list = []
+                if fmt == "ascii":
+                    for _ in range(count):
+                        nums = f.readline().split()
+                        k = int(nums[0])
+                        idx = list(map(int, nums[1:1 + k]))
+                        for j in range(1, k - 1):
+                            faces_list.append([idx[0], idx[j], idx[j + 1]])
+                else:
+                    cnt_t = endian + _PLY_TO_NP[props[0][2]]
+                    idx_t = endian + _PLY_TO_NP[props[0][3]]
+                    cnt_size = np.dtype(cnt_t).itemsize
+                    idx_size = np.dtype(idx_t).itemsize
+                    for _ in range(count):
+                        k = int(np.frombuffer(f.read(cnt_size), cnt_t)[0])
+                        idx = np.frombuffer(f.read(idx_size * k),
+                                            idx_t).astype(int)
+                        for j in range(1, k - 1):
+                            faces_list.append([idx[0], idx[j], idx[j + 1]])
+                faces = np.asarray(faces_list, np.int32)
+        if verts is None:
+            raise ValueError("PLY has no vertex element")
+        if faces is None:
+            faces = np.zeros((0, 3), np.int32)
+        return TriMesh(verts, faces)
+
+
+def save_obj(mesh: TriMesh, path: str | Path) -> None:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        for v in mesh.vertices:
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        for face in mesh.faces:
+            f.write(f"f {face[0] + 1} {face[1] + 1} {face[2] + 1}\n")

@@ -28,6 +28,10 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) wxyz -> (..., 3, 3). Normalizes internally."""
     w, x, y, z = quat_normalize(q).unbind(-1)
@@ -72,6 +76,11 @@ def rot_to_quat(R: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return quat_normalize(q)
 
 
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by quaternions q (..., 4)."""
+    return (quat_to_rot(q) @ v[..., None])[..., 0]
+
+
 def axis_angle_to_rot(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """(..., 3) rotation vector -> (..., 3, 3) via Rodrigues, small-angle
     safe."""
@@ -105,6 +114,44 @@ def rot_to_axis_angle(R: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return xyz * scale[..., None]
 
 
+def axis_angle_to_quat(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    theta = torch.linalg.vector_norm(aa, dim=-1, keepdim=True)
+    half = 0.5 * theta
+    small = theta[..., 0] < eps
+    sinc = torch.where(small[..., None], torch.full_like(theta, 0.5),
+                       torch.sin(half) / torch.clamp(theta, min=eps))
+    return torch.cat([torch.cos(half), aa * sinc], dim=-1)
+
+
+def euler_to_rot(rpy: torch.Tensor) -> torch.Tensor:
+    """(..., 3) roll/pitch/yaw about fixed x, y, z axes -> (..., 3, 3).
+
+    R = Rz(yaw) @ Ry(pitch) @ Rx(roll), the URDF ``rpy`` convention.
+    """
+    r, p, y = rpy.unbind(-1)
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    row0 = torch.stack([cy * cp, cy * sp * sr - sy * cr,
+                        cy * sp * cr + sy * sr], -1)
+    row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr,
+                        sy * sp * cr - cy * sr], -1)
+    row2 = torch.stack([-sp, cp * sr, cp * cr], -1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rot_to_euler(R: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 3) static-xyz Euler angles (gimbal-safe clamp)."""
+    sp = torch.clamp(-R[..., 2, 0], -1.0, 1.0)
+    p = torch.arcsin(sp)
+    safe = torch.abs(torch.cos(p)) > eps
+    r = torch.where(safe, torch.atan2(R[..., 2, 1], R[..., 2, 2]),
+                    torch.atan2(-R[..., 1, 2], R[..., 1, 1]))
+    y = torch.where(safe, torch.atan2(R[..., 1, 0], R[..., 0, 0]),
+                    torch.zeros_like(p))
+    return torch.stack([r, p, y], dim=-1)
+
+
 @functools.lru_cache(maxsize=None)
 def _se3_bottom(dtype, device) -> torch.Tensor:
     """The constant row [0, 0, 0, 1], made on ``device`` once."""
@@ -125,3 +172,12 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = T[..., :3, :3].transpose(-1, -2)
     t = T[..., :3, 3]
     return make_se3(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3)."""
+    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
+def xyzrpy_to_se3(xyz, rpy) -> torch.Tensor:
+    return make_se3(euler_to_rot(torch.as_tensor(rpy)), torch.as_tensor(xyz))

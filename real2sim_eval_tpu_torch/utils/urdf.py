@@ -1,9 +1,10 @@
 """URDF parsing into flat kinematic tables (host-side numpy).
 
-Counterpart of the kinematic part of the JAX package's utils/urdf.py:
-links and joints in document order (integer link ids match the scan masks'
-ids), collision primitives resolved to meshes. Mesh files are not loaded:
-the port's built-in arm uses URDF primitives only.
+Counterpart of the JAX package's utils/urdf.py: links and joints in
+document order (integer link ids match the scan masks' ids), every
+non-fixed joint one DOF, collision geometry as mesh files (loaded
+relative to the URDF's directory, with the element's ``scale``) or
+primitives resolved to meshes.
 """
 
 from __future__ import annotations
@@ -14,15 +15,18 @@ from pathlib import Path
 
 import numpy as np
 
-from .mesh import TriMesh, make_box, make_cylinder, make_sphere
+from .mesh import TriMesh, load_mesh, make_box, make_cylinder, make_sphere
 
 BUILTIN_URDF = str(Path(__file__).resolve().parent.parent / "assets"
                    / "simple_arm.urdf")
 
 
-def resolve_geometry(spec) -> TriMesh:
-    """A primitive spec ('box', size) / ('sphere', r) / ('cylinder', r, l)
-    -> TriMesh."""
+def resolve_geometry(spec, root_dir: Path | str = ".") -> TriMesh:
+    """A collision-geometry spec -> TriMesh. Spec is a mesh filename
+    (relative to ``root_dir``) or a primitive tuple ('box', size) /
+    ('sphere', r) / ('cylinder', r, l)."""
+    if isinstance(spec, str):
+        return load_mesh(Path(root_dir) / spec)
     kind = spec[0]
     if kind == "box":
         return make_box(spec[1])
@@ -30,7 +34,7 @@ def resolve_geometry(spec) -> TriMesh:
         return make_sphere(spec[1])
     if kind == "cylinder":
         return make_cylinder(spec[1], spec[2])
-    raise ValueError(f"unsupported geometry spec {spec!r}")
+    raise ValueError(f"unknown geometry spec {spec!r}")
 
 
 def _floats(text: str | None, default: str) -> np.ndarray:
@@ -59,59 +63,99 @@ def _origin_to_se3(elem: ET.Element | None) -> np.ndarray:
 @dataclass
 class UrdfJoint:
     name: str
-    type: str
+    type: str                      # revolute | prismatic | continuous | fixed
     parent: str
     child: str
-    origin: np.ndarray
-    axis: np.ndarray
+    origin: np.ndarray             # (4, 4)
+    axis: np.ndarray               # (3,)
     lower: float = 0.0
     upper: float = 0.0
+    mimic_joint: str | None = None
+    mimic_multiplier: float = 1.0
+    mimic_offset: float = 0.0
 
 
 @dataclass
 class UrdfLink:
     name: str
-    # (primitive spec, origin_se3) per collision element
-    collisions: list = field(default_factory=list)
+    # (mesh file or primitive spec, scale, origin_se3) per element
+    collision_meshes: list = field(default_factory=list)
+    visual_meshes: list = field(default_factory=list)
 
 
 @dataclass
 class UrdfModel:
     name: str
-    links: list
-    joints: list
+    links: list                    # document order (= scan-mask link ids)
+    joints: list                   # document order
+    root_dir: Path
+
+    def link_index(self, name: str) -> int:
+        for i, lk in enumerate(self.links):
+            if lk.name == name:
+                return i
+        raise KeyError(name)
 
     @property
     def link_names(self) -> list[str]:
         return [lk.name for lk in self.links]
 
+    @property
+    def actuated_joints(self) -> list[UrdfJoint]:
+        return [j for j in self.joints if j.type != "fixed"]
+
+    def load_collision_mesh(self, link_name: str):
+        """(first collision mesh of the link, scaled, in its own frame;
+        the collision origin), or None for a link without one."""
+        link = self.links[self.link_index(link_name)]
+        if not link.collision_meshes:
+            return None
+        spec, scale, origin = link.collision_meshes[0]
+        mesh = resolve_geometry(spec, self.root_dir)
+        if scale != 1.0:
+            mesh.scale(scale)
+        return mesh, origin
+
+    def collision_offset(self, link_name: str) -> np.ndarray:
+        link = self.links[self.link_index(link_name)]
+        if link.collision_meshes:
+            return link.collision_meshes[0][2]
+        return np.eye(4)
+
+
+def _geometry_spec(geom: ET.Element):
+    """(spec, scale) of a <geometry> element, or None if it has neither a
+    mesh nor a known primitive."""
+    mesh_el = geom.find("mesh")
+    if mesh_el is not None:
+        fname = mesh_el.get("filename", "").replace("package://", "")
+        scale_attr = mesh_el.get("scale")
+        return fname, float(scale_attr.split()[0]) if scale_attr else 1.0
+    if (box := geom.find("box")) is not None:
+        return ("box", tuple(_floats(box.get("size"), "0.1 0.1 0.1"))), 1.0
+    if (sph := geom.find("sphere")) is not None:
+        return ("sphere", float(sph.get("radius", "0.05"))), 1.0
+    if (cyl := geom.find("cylinder")) is not None:
+        return ("cylinder", float(cyl.get("radius", "0.05")),
+                float(cyl.get("length", "0.1"))), 1.0
+    return None
+
 
 def load_urdf(path) -> UrdfModel:
-    root = ET.parse(Path(path)).getroot()
+    path = Path(path)
+    root = ET.parse(path).getroot()
     links, joints = [], []
     for elem in root:
         if elem.tag == "link":
             link = UrdfLink(name=elem.get("name"))
-            for coll in elem.findall("collision"):
-                geom = coll.find("geometry")
-                if geom is None:
-                    continue
-                origin = _origin_to_se3(coll.find("origin"))
-                if geom.find("mesh") is not None:
-                    raise ValueError(
-                        f"link {link.name}: mesh collision geometry is not "
-                        "supported by the port's URDF loader")
-                if (box := geom.find("box")) is not None:
-                    spec = ("box", tuple(_floats(box.get("size"),
-                                                 "0.1 0.1 0.1")))
-                elif (sph := geom.find("sphere")) is not None:
-                    spec = ("sphere", float(sph.get("radius", "0.05")))
-                elif (cyl := geom.find("cylinder")) is not None:
-                    spec = ("cylinder", float(cyl.get("radius", "0.05")),
-                            float(cyl.get("length", "0.1")))
-                else:
-                    continue
-                link.collisions.append((spec, origin))
+            for kind, store in (("collision", link.collision_meshes),
+                                ("visual", link.visual_meshes)):
+                for coll in elem.findall(kind):
+                    geom = coll.find("geometry")
+                    spec = _geometry_spec(geom) if geom is not None else None
+                    if spec is not None:
+                        store.append((spec[0], spec[1],
+                                      _origin_to_se3(coll.find("origin"))))
             links.append(link)
         elif elem.tag == "joint":
             axis = elem.find("axis")
@@ -126,6 +170,11 @@ def load_urdf(path) -> UrdfModel:
             if limit is not None:
                 j.lower = float(limit.get("lower", "0"))
                 j.upper = float(limit.get("upper", "0"))
+            mimic = elem.find("mimic")
+            if mimic is not None:
+                j.mimic_joint = mimic.get("joint")
+                j.mimic_multiplier = float(mimic.get("multiplier", "1"))
+                j.mimic_offset = float(mimic.get("offset", "0"))
             joints.append(j)
     return UrdfModel(name=root.get("name", "robot"), links=links,
-                     joints=joints)
+                     joints=joints, root_dir=path.parent)

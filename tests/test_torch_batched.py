@@ -130,7 +130,9 @@ def evaluators(tmp_path_factory):
                    physics_over=dict(dt=2e-4, self_collision=True))
     jev = JEval(cfg, episode_ids=EPISODES,
                 raster_config=JRC(backend="reference"), physics_backend="xla")
-    tev = TEval(assets_from_numpy(jax_assets_tree(jev), "cpu"), EPISODES,
+    # the tree of the evaluator as built, before any test steps it
+    jev.initial_tree = jax_assets_tree(jev)
+    tev = TEval(assets_from_numpy(jev.initial_tree, "cpu"), EPISODES,
                 device="cpu")
     return jev, tev
 
@@ -391,3 +393,148 @@ def test_wrist_cull_counts_belong_to_their_render():
     assert "wrist_static_blocks" not in ev.render_stats
     assert "wrist_dynamic_blocks" not in ev.render_stats
     assert "merged_pairs" in ev.render_stats
+
+
+# ---------------------------------------------------------------------------
+# the evaluator built from a config
+# ---------------------------------------------------------------------------
+
+
+def _port_cfg(cfg):
+    import copy
+
+    from real2sim_eval_tpu_torch.config import ConfigNode
+    return ConfigNode(copy.deepcopy(cfg.to_dict()))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_config_build_equals_jax_assets(evaluators, tmp_path, writer):
+    """``BatchedEvaluator(cfg, ids)``'s asset build against the JAX
+    evaluator's, field by field and bitwise: every array the JAX
+    evaluator set up (``jax_assets_tree``) equals the port's, from the
+    JAX fixture files or from the port's own writers."""
+    from real2sim_eval_tpu_torch import testing as tt
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
+    from real2sim_eval_tpu_torch.parallel.assets import assets_tree
+
+    jev, _ = evaluators
+    if writer == "jax":
+        cfg = _port_cfg(jev.cfg)
+    else:
+        rope = tt.make_rope_points(n=120, length=0.3)
+        tt.write_fixture_checkpoint(tmp_path, "rope_slice", rope,
+                                    spring_Y=2e3)
+        gs = tt.make_synthetic_scene(tmp_path / "scans", rope_pts=rope,
+                                     ik_urdf=tt.BUILTIN_URDF, n_table=400)
+        gs["use_grid_randomization"] = True
+        cfg = tt.full_cfg(tmp_path, "rope_slice", gs=gs,
+                          cameras=tt.TEST_CAMERAS,
+                          physics_over=dict(dt=2e-4, self_collision=True))
+    jt = jev.initial_tree
+    tt_tree, rvars, dumps = assets_tree(cfg, EPISODES, device="cpu")
+    consumed = {k for k in jt if not k.startswith("opts/")}
+    assert consumed <= set(tt_tree), consumed - set(tt_tree)
+    for k in sorted(jt):
+        if k not in tt_tree:
+            continue
+        a, b = np.asarray(tt_tree[k]), np.asarray(jt[k])
+        np.testing.assert_array_equal(a, b, err_msg=k)
+        assert a.dtype == b.dtype or a.dtype.kind == b.dtype.kind, k
+    assert rvars == jev.random_variables
+    for d, j in zip(dumps, jev._static_mesh_dumps):
+        np.testing.assert_array_equal(d[0]["vertices"], j[0]["vertices"])
+    tev = TEval(cfg, EPISODES, device="cpu")
+    assert tev.cfg is cfg and tev.random_variables == jev.random_variables
+    if writer == "jax":
+        assert cfg.to_dict() == jev.cfg.to_dict()
+    np.testing.assert_array_equal(tev.state.rel_pose.numpy(),
+                                  np.asarray(jev.state.rel_pose))
+    jd, td = jev.get_state_dumps(), tev.get_state_dumps()
+    for i, (a, b) in enumerate(zip(td, jd)):
+        np.testing.assert_array_equal(
+            a["renderer"]["x"], jt["state/x"][i] - jt["global_translation"])
+        np.testing.assert_array_equal(a["physics"]["init_springs"],
+                                      b["physics"]["init_springs"])
+        np.testing.assert_array_equal(
+            a["physics"]["static_meshes"][0]["faces"],
+            b["physics"]["static_meshes"][0]["faces"])
+
+
+def test_lane_tracks_single_env(evaluators):
+    """A lane of the config-built evaluator against the port's single env
+    of the same episode: three steps of the hold action without velocity
+    control, particles within the JAX suite's single-versus-batch 1e-4
+    (tests/test_batched.py:121); the fixed frames at the compositor
+    tolerances before and after the first step. From the second step on
+    the two renders part in both packages alike: the single env blends
+    the last step's particle motion onto the rest splats
+    (renderer/renderer.py ``update_rendervar``: bones = the previous
+    particles), the evaluator the motion from the rest bones. So every
+    step's frames are also held, at the same tolerances, to the
+    evaluator's composition from its pre-render state with the single
+    env's blend: rest bones swapped for the env's previous particles,
+    particles for the env's current ones."""
+    import real2sim_eval_tpu_torch.envs as tenvs
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
+
+    jev, _ = evaluators
+    ev = TEval(_port_cfg(jev.cfg), [3], RasterConfig(incremental="off"),
+               device="cpu")
+    env = tenvs.make("BaseEnv-v0", cfg=_port_cfg(jev.cfg), randomize=True,
+                     device="cpu")
+    obs, _ = env.reset(seed=3)
+    act = hold_then_reach_actions(1)
+    base_assets = ev.assets
+
+    def assert_frames(frames, obs):
+        ims, depths, _, _ = frames
+        np.testing.assert_allclose(ims[0, 0].numpy(),
+                                   obs["image_list"][0].numpy(), atol=2e-3)
+        dd = np.abs(depths[0, 0].numpy() - obs["depth_list"][0].numpy())
+        assert int((dd > 1e-3).sum()) <= max(5, int(2e-4 * dd.size))
+
+    for k in range(4):
+        bones_prev = env.unwrapped.renderer.state["x"].clone()
+        if k:
+            ev.step(act, do_velocity_control=False)
+            env.step({"action": act, "do_velocity_control": False})
+            obs = env.unwrapped.get_obs()
+        np.testing.assert_allclose(
+            ev.particle_states()[0],
+            env.unwrapped.physics.current_points.numpy(), atol=1e-4)
+        if k:
+            pre = ev.state
+            ev.assets = dataclasses.replace(base_assets, bones0=bones_prev)
+            ev.state = pre.replace(sm=dataclasses.replace(
+                pre.sm, x=env.unwrapped.renderer.state["x"][None]))
+            assert_frames(ev.render(), obs)
+            ev.assets, ev.state = base_assets, pre
+        if k <= 1:
+            assert_frames(ev.render(), obs)
+
+
+def test_save_load_state_round_trip(stepped, tmp_path):
+    """A snapshot of the stepped state restores bitwise, and refuses a
+    different episode list."""
+    import torch
+
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator as TEval
+
+    _, tev0, _, ts, _, _ = stepped
+    tev = TEval(tev0.assets, EPISODES, device="cpu")
+    tev.state = ts
+    tev.save_state(tmp_path / "snap.pkl", extra={"step": 2})
+    fresh = TEval(tev0.assets, EPISODES, device="cpu")
+    assert fresh.load_state(tmp_path / "snap.pkl") == {"step": 2}
+    for name in ("grippers", "qpos7", "rel_pose", "static_pose", "rest_x"):
+        assert torch.equal(getattr(fresh.state, name), getattr(ts, name))
+    for part in ("sm", "grasp"):
+        a, b = getattr(fresh.state, part), getattr(ts, part)
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert x.dtype == y.dtype and torch.equal(x, y), f.name
+    assert fresh.state.step == ts.step
+    other = TEval(tev0.assets, EPISODES, device="cpu")
+    other.episode_ids = [1, 2]
+    with pytest.raises(ValueError):
+        other.load_state(tmp_path / "snap.pkl")

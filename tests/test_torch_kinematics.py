@@ -14,6 +14,7 @@ from real2sim_eval_tpu.renderer import scene as jscene
 from real2sim_eval_tpu.testing import BUILTIN_URDF as J_URDF
 from real2sim_eval_tpu_torch.kinematics import KinematicChain as TChain
 from real2sim_eval_tpu_torch.kinematics import make_ik_fn as t_make_ik
+from real2sim_eval_tpu_torch.kinematics.robot import RobotModel as TRobotModel
 from real2sim_eval_tpu_torch.renderer import lbs as tlbs
 from real2sim_eval_tpu_torch.renderer import scene as tscene
 from real2sim_eval_tpu_torch.utils.urdf import BUILTIN_URDF as T_URDF
@@ -117,8 +118,8 @@ def test_articulation_matches_jax():
                      if i < len(jc.link_names))
     base_q = np.concatenate([Q0, np.full(jc.n_dof - 7, 0.05)])
     art_j = jscene.RobotArticulation.build(robot, link_ids, base_q)
-    art_t = tscene.RobotArticulation.build(tc, link_ids, base_q, robot.offsets,
-                                           "cpu")
+    art_t = tscene.RobotArticulation.build(TRobotModel(T_URDF), link_ids,
+                                           base_q, device="cpu")
     np.testing.assert_allclose(art_t.base_inv.numpy(),
                                np.asarray(art_j.base_inv), atol=1e-6)
     rng = np.random.default_rng(3)

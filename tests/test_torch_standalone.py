@@ -30,7 +30,16 @@ def test_importing_the_port_loads_no_jax():
             "real2sim_eval_tpu_torch.renderer.precull, "
             "real2sim_eval_tpu_torch.renderer.diff, "
             "real2sim_eval_tpu_torch.utils.ply, "
-            "real2sim_eval_tpu_torch.experiments.utils.refine_gs\n"
+            "real2sim_eval_tpu_torch.experiments.utils.refine_gs, "
+            "real2sim_eval_tpu_torch.config, real2sim_eval_tpu_torch.envs, "
+            "real2sim_eval_tpu_torch.renderer.renderer, "
+            "real2sim_eval_tpu_torch.parallel.assets, "
+            "real2sim_eval_tpu_torch.physics.dynamics, "
+            "real2sim_eval_tpu_torch.physics.checkpoints, "
+            "real2sim_eval_tpu_torch.kinematics.robot, "
+            "real2sim_eval_tpu_torch.utils.gs_processor, "
+            "real2sim_eval_tpu_torch.utils.logging, "
+            "real2sim_eval_tpu_torch.utils.transforms_np\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")
@@ -122,3 +131,36 @@ def test_refinement_entry_points_need_the_card_unless_asked(monkeypatch,
                         str(tmp_path / "o.ply"), "--iters", "1"])
     _, hist = refine_gs.refine(params, *views, iters=1, device="cpu")
     assert len(hist) == 1 and np.isfinite(hist[0])
+
+
+def test_config_entry_points_need_the_card_unless_asked(monkeypatch,
+                                                        tmp_path):
+    """The config-driven entry points (``BatchedEvaluator(cfg, ...)``,
+    ``envs.make``, ``BaseEnv``, ``GSRenderer``, ``PhysTwinDynamics``)
+    default to the card and raise without one; with ``device="cpu"``
+    they build. ``online: true`` is refused."""
+    import real2sim_eval_tpu_torch.envs as envs
+    from real2sim_eval_tpu_torch import testing as tt
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.physics.dynamics import PhysTwinDynamics
+    from real2sim_eval_tpu_torch.renderer.renderer import GSRenderer
+
+    rope = tt.make_rope_points(n=30, length=0.2)
+    tt.write_fixture_checkpoint(tmp_path, "rope", rope, spring_Y=2e3)
+    gs = tt.make_synthetic_scene(tmp_path / "scans", rope_pts=rope,
+                                 n_table=50)
+    cfg = tt.full_cfg(tmp_path, "rope", gs=gs, cameras=tt.TEST_CAMERAS,
+                      physics_over=dict(dt=2e-4))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda **kw: BatchedEvaluator(cfg.copy(), [0], **kw),
+                  lambda **kw: envs.make("BaseEnv-v0", cfg=cfg, **kw),
+                  lambda **kw: envs.BaseEnv(cfg, **kw),
+                  lambda **kw: GSRenderer(cfg, **kw),
+                  lambda **kw: PhysTwinDynamics(cfg, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        assert build(device="cpu") is not None
+    online = cfg.copy()
+    online.online = True
+    with pytest.raises(NotImplementedError, match="online"):
+        GSRenderer(online, device="cpu")
