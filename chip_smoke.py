@@ -38,6 +38,12 @@ held against a one-episode evaluator of the same config
 (``single_env``: particles at every step, frames through the first,
 every step's frame against a reference with the single env's blend,
 its K1 bitwise on captured inputs, its synchronising calls counted).
+The CLIs then run on that scene (``cli_batched``:
+``eval_policy_batched.cli`` at 64 lanes with its per-step split, the
+reference's file layout, and its particles and lane 0's first frames
+bitwise its own evaluator restored to a snapshot and driven directly;
+``success``; ``cli_single``, bitwise a single env driven with the
+run's recorded actions; ``cli_replay`` in two formats; ``cli_teleop``).
 Every
 compositor's least time counts only the (pixel, pair) evaluations that
 reach a pixel (``pixel_pair_walks``).
@@ -51,6 +57,8 @@ the default path timed once more as a control.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import subprocess
@@ -74,6 +82,17 @@ TIMED_STEPS_CFG = 5
 SINGLE_ENV_STEPS = 3
 # the default path timed once more after the device profiles (main)
 TIMED_STEPS_AFTER = 3
+# the CLI phases' cuts from a user's run: 1 s of control (30 steps after
+# the 30 stabilization steps) instead of the rope config's 30 s, and a
+# checkpoint and a saturation check every 10 steps
+CLI_DURATION = 1
+CLI_CHECKPOINT_EVERY = 10
+CLI_TELEMETRY_EVERY = 10
+# the replayed trajectory: 10 recorded steps, each 5 mm lower
+CLI_REPLAY_STEPS = 10
+CLI_REPLAY_DESCENT = 0.005
+CLI_TELEOP_KEYS = "wwwq"
+CLI_TELEOP_STEPS = 3
 # step + render samples each stage breakdown averages: one synchronised
 # sample of a stage can land on a host stall several times its usual length
 BREAKDOWN_REPS = 3
@@ -2001,6 +2020,7 @@ def run_cfg_flagship(ev, actions, build_s: float, flagship: dict):
           "flagship": {k: flagship[k] for k in (
               "env_steps_per_s", "physics_ms", "render_ms",
               "max_memory_allocated_bytes")}})
+    return out["env_steps_per_s"]
 
 
 def single_env(cfg, seed: int = 3):
@@ -2133,6 +2153,486 @@ def single_env(cfg, seed: int = 3):
     for name in ("spring_mass_step", "tile_composite"):
         if env_launches[name] < 1 or ev_launches[name] < 1:
             fail(f"single_env: {name} was not launched")
+
+
+# ---------------------------------------------------------------------------
+# the CLIs on the flagship scene
+# ---------------------------------------------------------------------------
+
+
+def probe_encoders() -> dict:
+    """What this machine has to encode frames and videos: OpenCV, PIL and
+    the ffmpeg binary (a version, a path or None)."""
+    import importlib
+    import shutil
+
+    out = {}
+    for mod in ("cv2", "PIL"):
+        try:
+            out[mod] = importlib.import_module(mod).__version__
+        except ImportError:
+            out[mod] = None
+    out["ffmpeg"] = shutil.which("ffmpeg")
+    return out
+
+
+def write_cli_configs(cfg, root: Path) -> Path:
+    """cfg_build's flagship config as each CLI's config file, with the
+    phases' cuts. The grid randomization would cap the batched CLI at its
+    9 cells (``n_grid_episodes``), so the episodes draw uniform poses."""
+    from real2sim_eval_tpu_torch.config import ConfigNode, save_config
+
+    c = ConfigNode(copy.deepcopy(cfg.to_dict()))
+    c.gs.use_grid_randomization = False
+    c.exp_root = str(root / "log")
+    c.timestamp = "cli"
+    c.env.sim.duration = CLI_DURATION
+    c.raster_backend = "auto"
+    c.batch_size = B_FLAGSHIP
+    c.episode_start = 0
+    c.checkpoint_every = CLI_CHECKPOINT_EVERY
+    c.telemetry_every = CLI_TELEMETRY_EVERY
+    c.policy = dict(builtin="hold", n_episodes=B_FLAGSHIP,
+                    inference_cfg_path=None, checkpoint_path=None)
+    d = root / "cli_cfg"
+    save_config(c, d / "eval_policy_batched.yaml")
+    c.policy.n_episodes = 1
+    save_config(c, d / "eval_policy.yaml")
+    c.gt_dir = str(root / "gt")
+    c.use_qpos = False
+    c.randomize = False
+    save_config(c, d / "replay.yaml")
+    save_config(c, d / "keyboard_teleop.yaml")
+    return d
+
+
+def episode_paths(n_episodes: int, n_cams: int, n_steps: int) -> set:
+    """Relative paths a CLI run writes for its episodes (the reference's
+    layout): per camera n_steps + 1 frames and the start and final
+    frames, per step a robot JSON and a state pickle, the calibration and
+    the random variables, a video per camera; and ``hydra.yaml``."""
+    out = {"hydra.yaml"}
+    for ep in range(n_episodes):
+        e = f"episode_{ep:04d}"
+        for cam in range(n_cams):
+            out |= {f"{e}/camera_{cam}/rgb/{k:06d}.jpg"
+                    for k in range(n_steps + 1)}
+            out |= {f"{sf}_images/{e}_camera_{cam}.jpg"
+                    for sf in ("start", "final")}
+            out.add(f"{e}/vis_camera_{cam}.mp4")
+        out |= {f"{e}/robot/{k:06d}.json" for k in range(n_steps)}
+        out |= {f"{e}/state/{k:06d}.pkl" for k in range(n_steps)}
+        out |= {f"{e}/calibration/{n}.npy"
+                for n in ("rvecs", "tvecs", "intrinsics")}
+        out.add(f"{e}/random_variables.json")
+    return out
+
+
+def written(run: Path) -> tuple:
+    """(relative paths, bytes) of the files under ``run``."""
+    files = [p for p in Path(run).rglob("*") if p.is_file()]
+    return ({str(p.relative_to(run)) for p in files},
+            sum(p.stat().st_size for p in files))
+
+
+def check_layout(phase: str, run: Path, expected: set) -> dict:
+    paths, n_bytes = written(run)
+    if paths != expected:
+        fail(f"{phase}: the run wrote other files than the reference's "
+             f"layout: missing {sorted(expected - paths)[:5]}, extra "
+             f"{sorted(paths - expected)[:5]}")
+    return {"files_written": len(paths), "bytes_written": n_bytes}
+
+
+def check_state_dumps(phase: str, run: Path) -> None:
+    """Every state pickle of the run: step 0's holds ``physics`` and later
+    ones do not; every ``renderer.x`` is finite."""
+    import pickle
+
+    for p in sorted(Path(run).glob("episode_*/state/*.pkl")):
+        with open(p, "rb") as f:
+            s = pickle.load(f)
+        if ("physics" in s) != (p.stem == "000000"):
+            fail(f"{phase}: {p.relative_to(run)} has keys {sorted(s)}")
+        if not np.isfinite(s["renderer"]["x"].numpy()).all():
+            fail(f"{phase}: {p.relative_to(run)} holds non-finite particles")
+
+
+def syncs_by_phase(fn, stats: dict):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``, each
+    synchronising call counted by the CLI phase that ran it
+    (``stats["current"]``, set by the CLI's ``PhaseTimer``; calls outside
+    a phase count as "outside"). Returns (fn's result, counts)."""
+    import warnings
+
+    import torch
+
+    counts: dict = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            k = stats.get("current") or "outside"
+            counts[k] = counts.get(k, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, counts
+
+
+def run_cli(fn, stats: dict):
+    """A CLI call with its printed progress sent to standard error (every
+    line of this script's standard output is one JSON object), its
+    synchronising calls counted (syncs_by_phase) and its peak memory."""
+    import torch
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(sys.stderr):
+        out, syncs = syncs_by_phase(fn, stats)
+    sync()
+    return out, syncs, int(torch.cuda.max_memory_allocated())
+
+
+def loop_split(stats: dict, n_steps: int, syncs: dict) -> dict:
+    """Per loop step: each phase's ms (its total over the loop / steps)
+    and synchronising calls, and the walls between the CLI's marks."""
+    m = stats["marks"]
+    walls = {"build_s": m["built"] - m["start"],
+             "stabilization_s": m["stabilized"] - m["built"],
+             "loop_s": m["looped"] - m["stabilized"],
+             "final_frames_and_videos_s": m["done"] - m["looped"]}
+    ms = {k: float(np.sum(v)) / n_steps for k, v in stats["ms"].items()}
+    loop_syncs = {k: v for k, v in syncs.items() if k in stats["ms"]}
+    return {**walls, "loop_ms_per_step": walls["loop_s"] * 1e3 / n_steps,
+            "ms_per_step": ms, "phase_calls": {
+                k: len(v) for k, v in stats["ms"].items()},
+            "syncs_per_step": sum(loop_syncs.values()) / n_steps,
+            "syncs_per_step_by_phase": {k: v / n_steps
+                                        for k, v in loop_syncs.items()},
+            "syncs_outside_loop_phases": syncs.get("outside", 0)}
+
+
+def cli_batched(cfg_dir: Path, root: Path, bare_rate: float):
+    """``eval_policy_batched.cli`` at the flagship: 64 lanes, the hold
+    policy, the phases' cuts. Gates: the written files are the reference's
+    layout (no checkpoint left, the batch's done marker); step 0's pickle
+    alone holds ``physics``; every ``renderer.x`` is finite; K3, K1 and K2
+    launched every loop step; the CLI's evaluator, restored to its
+    snapshot from before the stabilization and driven directly with the
+    same hold actions, gives bitwise the CLI's particles after the last
+    step and lane 0's step-0 uint8 frames (as the CLI hands them to
+    ``cv2.imwrite``)."""
+    import cv2
+    import torch
+
+    from real2sim_eval_tpu_torch import ext
+    from real2sim_eval_tpu_torch.experiments import eval_policy_batched as epb
+    from real2sim_eval_tpu_torch.experiments.episode_io import camera_frames
+    from real2sim_eval_tpu_torch.experiments.policy_api import HoldPolicy
+
+    snapshot = root / "cli_initial.pkl"
+    launches: dict = {}
+    seen: dict = {}
+
+    def on_mark(name, ev):
+        if name == "built":
+            ev.save_state(snapshot)
+            seen["evaluator"] = ev
+        elif name == "stabilized":
+            ext.reset_launch_counts()
+        elif name == "looped":
+            launches.update(ext.LAUNCHES)
+            seen["particles"] = ev.particle_states()
+
+    frames0: dict = {}      # camera -> lane 0's step-0 frame
+    imwrite = cv2.imwrite
+
+    def record(path, img):
+        p = Path(path)
+        if p.name == "000000.jpg" and p.parts[-4] == "episode_0000":
+            frames0[int(p.parts[-3].removeprefix("camera_"))] = np.array(img)
+        return imwrite(path, img)
+
+    stats = {"on_mark": on_mark}
+    t0 = time.perf_counter()
+    cv2.imwrite = record
+    try:
+        run, syncs, peak = run_cli(lambda: epb.cli(
+            ["--config-path", str(cfg_dir), "--device", DEVICE],
+            stats=stats), stats)
+    finally:
+        cv2.imwrite = imwrite
+    wall_s = time.perf_counter() - t0
+    ev = seen.pop("evaluator")
+    cfg = ev.cfg
+    n_steps = int(cfg.physics.fps) * CLI_DURATION
+    n_cams = len(cfg.env.cameras)
+    split = loop_split(stats, n_steps, syncs)
+    layout = check_layout("cli_batched", run, episode_paths(
+        B_FLAGSHIP, n_cams, n_steps) | {"batch_00000.done"})
+    check_state_dumps("cli_batched", run)
+
+    # the same episodes driven directly
+    ev.load_state(snapshot)
+    hold = torch.as_tensor(epb.hold_actions(ev.state.grippers.cpu().numpy()),
+                           dtype=torch.float32, device=DEVICE)
+    for _ in range(30):
+        ev.step(hold, do_velocity_control=False)
+    obs = ev.observations()
+    lane0 = [(f * 255).to(torch.uint8).permute(1, 2, 0).flip(-1).cpu().numpy()
+             for f in camera_frames(cfg.env.cameras, obs["images"][0],
+                                    obs["wrist_images"][0])]
+    frames_bitwise = len(frames0) == n_cams and all(
+        np.array_equal(a, frames0[k]) for k, a in enumerate(lane0))
+    policy = HoldPolicy()
+    for _ in range(n_steps):
+        cartesian = policy.inference(
+            {"observation.state": obs["observation.state"].cpu().numpy()})
+        ev.step(torch.as_tensor(epb.actions_from_policy(cartesian, False),
+                                device=DEVICE))
+        obs = ev.observations()
+    x_direct = ev.particle_states()
+    x_gap = float(np.abs(x_direct - seen["particles"]).max())
+    particles_bitwise = bool(np.array_equal(x_direct, seen["particles"]))
+    del ev, obs
+    torch.cuda.empty_cache()
+
+    counts = stats["counts"]
+    out = {"phase": "cli_batched", "envs": B_FLAGSHIP,
+           "cuts": {"env.sim.duration": CLI_DURATION,
+                    "control_steps": n_steps, "stabilization_steps": 30,
+                    "checkpoint_every": CLI_CHECKPOINT_EVERY,
+                    "telemetry_every": CLI_TELEMETRY_EVERY,
+                    "gs.use_grid_randomization": False},
+           "wall_s": wall_s, **split,
+           "loop_env_steps_per_s": B_FLAGSHIP * n_steps / split["loop_s"],
+           "cfg_flagship_env_steps_per_s": bare_rate,
+           "copy_bytes_per_step": {k: v / n_steps for k, v in counts.items()},
+           **layout, "max_memory_allocated_bytes": peak,
+           "launches_loop": launches,
+           "frames_lane0_step0_bitwise": frames_bitwise,
+           "particles_bitwise_direct": particles_bitwise,
+           "particles_max_gap_direct": x_gap}
+    emit(out)
+    for name in ("spring_mass_step", "tile_composite", "tile_sparse"):
+        if launches.get(name, 0) < n_steps:
+            fail(f"cli_batched: {name} launched {launches.get(name, 0)} "
+                 f"times in {n_steps} loop steps")
+    if not frames_bitwise:
+        fail("cli_batched: lane 0's step-0 frames differ from the directly "
+             "driven evaluator's")
+    if not particles_bitwise:
+        fail(f"cli_batched: the particles part from the directly driven "
+             f"evaluator's ({x_gap})")
+    return run
+
+
+def cli_success(run: Path) -> None:
+    """``calculate_success_rope`` over cli_batched's dumps, every frame
+    from step 0: 64 results, all False under the hold policy."""
+    from real2sim_eval_tpu_torch.experiments.utils import (
+        calculate_success_rope as rope)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        results = rope.main(["--data_dir", str(run), "--start_step", "0"])
+    seconds = time.perf_counter() - t0
+    table = np.loadtxt(Path(run) / "success.txt")
+    emit({"phase": "success", "criterion": "rope", "start_step": 0,
+          "episodes": len(results), "successes": int(sum(results)),
+          "seconds": seconds, "success_txt_tail": table[-2:].tolist()})
+    if len(results) != B_FLAGSHIP or any(results) or table[-2] != 0:
+        fail(f"success: {len(results)} results, {sum(results)} successes")
+
+
+def cli_single(cfg_dir: Path) -> None:
+    """``eval_policy.cli`` for one episode on the flagship scene. Gates:
+    the reference's layout; the particles before every step and after the
+    last equal, bitwise, a single env driven directly with the actions
+    the run's robot JSONs record."""
+    import json
+    import pickle
+
+    import torch
+
+    import real2sim_eval_tpu_torch.envs as envs
+    from real2sim_eval_tpu_torch.config import load_config
+    from real2sim_eval_tpu_torch.experiments import eval_policy as ep
+    from real2sim_eval_tpu_torch.utils import transforms_np as tnp
+
+    seen: dict = {}
+
+    def on_mark(name, env):
+        if name == "looped":
+            seen["particles"] = env.unwrapped.get_state()["renderer"]["x"]
+
+    stats = {"on_mark": on_mark}
+    run, syncs, peak = run_cli(lambda: ep.cli(
+        ["--config-path", str(cfg_dir), "--device", DEVICE], stats=stats),
+        stats)
+    cfg = load_config(cfg_dir, "eval_policy")
+    n_steps = int(cfg.physics.fps) * CLI_DURATION
+    layout = check_layout("cli_single", run, episode_paths(
+        1, len(cfg.env.cameras), n_steps))
+    check_state_dumps("cli_single", run)
+
+    env = envs.make(cfg.env_name, cfg=cfg, randomize=True,
+                    raster_config=ep.raster_config_from(cfg), device=DEVICE)
+    obs, _ = env.reset(seed=0)
+    xyz, quat, grip = ep.robot_obs(obs)
+    hold = np.concatenate([xyz, tnp.quat_to_rot(quat).reshape(1, -1), grip],
+                          axis=1)
+    for _ in range(30):
+        env.step({"action": ep.env_action(hold, DEVICE),
+                  "do_velocity_control": False})
+    env.unwrapped.get_obs()
+    ep_dir = Path(run) / "episode_0000"
+    gaps = []
+    for cnt in range(n_steps):
+        with open(ep_dir / "state" / f"{cnt:06d}.pkl", "rb") as f:
+            x_cli = pickle.load(f)["renderer"]["x"].numpy()
+        x = env.unwrapped.get_state()["renderer"]["x"]
+        gaps.append(None if np.array_equal(x, x_cli)
+                    else float(np.abs(x - x_cli).max()))
+        with open(ep_dir / "robot" / f"{cnt:06d}.json") as f:
+            rec = json.load(f)
+        a_xyz = np.array(rec["action.ee_pos"], np.float32)[None]
+        a_quat = np.array(rec["action.ee_quat"], np.float32)[None]
+        a_grip = np.array(rec["action.gripper_qpos"], np.float32)[None]
+        action = np.concatenate([a_xyz, tnp.quat_to_rot(a_quat).reshape(1, -1),
+                                 1.0 - a_grip], axis=1)
+        env.step({"action": ep.env_action(action, DEVICE),
+                  "do_velocity_control":
+                      bool(cfg.env.robot.do_velocity_control)})
+        env.unwrapped.get_obs()
+    x = env.unwrapped.get_state()["renderer"]["x"]
+    gaps.append(None if np.array_equal(x, seen["particles"])
+                else float(np.abs(x - seen["particles"]).max()))
+    del env
+    torch.cuda.empty_cache()
+    split = loop_split(stats, n_steps, syncs)
+    emit({"phase": "cli_single",
+          "cuts": {"env.sim.duration": CLI_DURATION,
+                   "control_steps": n_steps, "stabilization_steps": 30,
+                   "gs.use_grid_randomization": False},
+          **split, **layout, "max_memory_allocated_bytes": peak,
+          "particles_steps_not_bitwise": [i for i, g in enumerate(gaps)
+                                          if g is not None],
+          "particles_max_gap": max((g for g in gaps if g is not None),
+                                   default=0.0)})
+    if any(g is not None for g in gaps):
+        fail(f"cli_single: the particles part from the directly driven "
+             f"single env's at steps {[i for i, g in enumerate(gaps) if g]}")
+
+
+def write_replay_trajectory(cfg, gt: Path) -> dict:
+    """CLI_REPLAY_STEPS recorded frames from the configured initial eef,
+    each CLI_REPLAY_DESCENT lower, pointing down, the gripper open; each
+    with the ``action.qpos`` of the port's ``KinHelper`` IK (chained from
+    the canonical arm pose) beside the ``ee_pos`` format. Returns the IK's
+    largest FK distance from the recorded positions."""
+    import json
+
+    from real2sim_eval_tpu_torch.kinematics import KinHelper
+    from real2sim_eval_tpu_torch.kinematics.robot import CANONICAL_ARM_QPOS
+
+    kh = KinHelper(cfg.env.urdf.ik_urdf_path, device=DEVICE)
+    x0 = np.array(cfg.env.robot.init_eef_xyz, np.float64)
+    q = CANONICAL_ARM_QPOS.astype(np.float32)
+    (gt / "robot").mkdir(parents=True)
+    fk_err = 0.0
+    for i in range(CLI_REPLAY_STEPS):
+        xyz = x0 - [0.0, 0.0, CLI_REPLAY_DESCENT * i]
+        q = kh.compute_ik_sapien(q, np.concatenate([xyz, [np.pi, 0.0, 0.0]]))
+        T = kh.compute_fk_sapien_links(q, [kh.sapien_eef_idx])[0]
+        fk_err = max(fk_err, float(np.abs(T[:3, 3] - xyz).max()))
+        rec = {"action.ee_pos": xyz.tolist(),
+               "action.ee_quat": [0.0, 1.0, 0.0, 0.0],
+               "action.gripper_qpos": [0.0], "action.qpos": q.tolist()}
+        with open(gt / "robot" / f"{i:06d}.json", "w") as f:
+            json.dump(rec, f)
+    return {"kinhelper_fk_max_err": fk_err}
+
+
+def cli_replay(cfg_dir: Path) -> None:
+    """``replay.cli`` over the recorded descent, in the ``ee_pos`` format
+    and in the ``qpos`` format (through ``KinHelper``'s FK). Gates: the
+    reference's layout, finite state, and the eef below its start by at
+    least half the recorded descent."""
+    import json
+
+    from real2sim_eval_tpu_torch.config import load_config
+    from real2sim_eval_tpu_torch.experiments import replay
+
+    cfg = load_config(cfg_dir, "replay")
+    ik = write_replay_trajectory(cfg, Path(cfg.gt_dir))
+    descent = CLI_REPLAY_DESCENT * (CLI_REPLAY_STEPS - 1)
+    out = {"phase": "cli_replay", "steps": CLI_REPLAY_STEPS,
+           "recorded_descent_m": descent, **ik}
+    for fmt, use_qpos in (("ee_pos", False), ("qpos", True)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            run = replay.cli(["--config-path", str(cfg_dir), "--device",
+                              DEVICE, f"timestamp=replay_{fmt}",
+                              f"use_qpos={use_qpos}"])
+        wall = time.perf_counter() - t0
+        layout = check_layout(f"cli_replay_{fmt}", run, episode_paths(
+            1, len(cfg.env.cameras), CLI_REPLAY_STEPS))
+        check_state_dumps(f"cli_replay_{fmt}", run)
+        robot = sorted((Path(run) / "episode_0000" / "robot").glob("*.json"))
+        z = [json.load(open(p))["obs.ee_pos"][2] for p in (robot[0],
+                                                           robot[-1])]
+        out[fmt] = {"wall_s": wall, **layout, "eef_z_first": z[0],
+                    "eef_z_last": z[1], "eef_descent_m": z[0] - z[1]}
+    emit(out)
+    for fmt in ("ee_pos", "qpos"):
+        if out[fmt]["eef_descent_m"] < 0.5 * descent:
+            fail(f"cli_replay: the {fmt} replay moved the eef down "
+                 f"{out[fmt]['eef_descent_m']} m of {descent}")
+
+
+def cli_teleop(cfg_dir: Path) -> None:
+    """``InteractivePlayground`` with a programmatic ``KeySource``
+    ("wwwq": +x three times, +z once), CLI_TELEOP_STEPS steps, no window.
+    Gate: the eef's x increased."""
+    from real2sim_eval_tpu_torch.config import load_config
+    from real2sim_eval_tpu_torch.experiments.keyboard_teleop import (
+        InteractivePlayground, KeySource)
+    from real2sim_eval_tpu_torch.utils.device import to_numpy
+
+    cfg = load_config(cfg_dir, "keyboard_teleop")
+    keys = KeySource()
+    for k in CLI_TELEOP_KEYS:
+        keys.push(k)
+    t0 = time.perf_counter()
+    obs = InteractivePlayground(cfg, key_source=keys,
+                                max_steps=CLI_TELEOP_STEPS, show=False,
+                                device=DEVICE).run()
+    wall = time.perf_counter() - t0
+    eef = to_numpy(obs["robot"]["eef_xyz"])[0]
+    x0 = float(cfg.env.robot.init_eef_xyz[0])
+    emit({"phase": "cli_teleop", "keys": CLI_TELEOP_KEYS,
+          "steps": CLI_TELEOP_STEPS, "wall_s": wall,
+          "eef_xyz": eef.tolist(), "init_eef_x": x0})
+    if not eef[0] > x0:
+        fail(f"cli_teleop: the eef did not move +x ({eef} from x {x0})")
+
+
+def run_clis(cfg, root: Path, bare_rate: float) -> None:
+    """The CLI phases on cfg_build's flagship scene. They write JPEGs and
+    videos as the package does, through cv2 (probed on the device line)."""
+    cfg_dir = write_cli_configs(cfg, root)
+    run = cli_batched(cfg_dir, root, bare_rate)
+    cli_success(run)
+    cli_single(cfg_dir)
+    cli_replay(cfg_dir)
+    cli_teleop(cfg_dir)
 
 
 def device_profiles(runs) -> None:
@@ -2789,9 +3289,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    encoders = probe_encoders()
     emit({"phase": "device", "nvidia_smi": smi, "name": name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "count": torch.cuda.device_count()})
+          "count": torch.cuda.device_count(), "encoders": encoders})
 
     t0 = time.perf_counter()
     ptxas = start_ptxas()
@@ -2830,10 +3331,11 @@ def main() -> int:
     kernels += measure_refine_kernels(launches_r, k7_args, k8_args)
     with tempfile.TemporaryDirectory() as root:
         ev_c, cfg, build_s = cfg_build(Path(root))
-        run_cfg_flagship(ev_c, actions, build_s, flagship)
+        bare_rate = run_cfg_flagship(ev_c, actions, build_s, flagship)
         del ev_c
         torch.cuda.empty_cache()
         single_env(cfg)
+        run_clis(cfg, Path(root), bare_rate)
     ik_target = ik_targets(ev, actions)["mimic"]
     device_profiles([
         # one graphed IK solve (copy in, replay, clone out)

@@ -1,1 +1,2 @@
-"""Utility tools: scene refinement (refine_gs)."""
+"""Utility tools: run directories, videos, the success calculators and
+scene refinement (refine_gs)."""

@@ -12,13 +12,20 @@ product chain and the rotation log. Forward-mode AD from ``torch.func``
 computes the same Jacobian (the tests hold them together) but dispatches
 each of the ~250 ops of one evaluation through its interpreter, which cost
 tens of milliseconds per Gauss-Newton step on the host.
+
+``KinHelper`` is the reference's numpy-in, numpy-out facade over the FK
+and this solve, for the tools (replay's ``qpos`` format).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
+import numpy as np
 import torch
 
 from ..utils import transforms as tf
+from ..utils.device import resolve_device
 from ..utils.graph import Graphed
 from .chain import KinematicChain, _prismatic, _rot_about_axis
 
@@ -232,3 +239,44 @@ def make_ik_fn(chain: KinematicChain, eef_link, n_active: int | None = None,
     solver.eager = solve
     solver.graph = graph
     return solver
+
+
+def ik_damped_ls(chain, eef_link, q_init, target_se3, **kwargs):
+    """One-shot convenience wrapper around :func:`make_ik_fn`."""
+    return make_ik_fn(chain, eef_link, **kwargs)(q_init, target_se3)
+
+
+class KinHelper:
+    """The reference's ``KinHelper`` facade (kinematics_utils.py:6-84) on
+    the port's FK and IK; numpy in, numpy out.
+
+    ``compute_fk_sapien_links(qpos, link_idx)`` returns 4x4 matrices;
+    ``compute_ik_sapien(initial_qpos, cartesian)`` takes x, y, z and
+    static-xyz Euler angles. The solve runs on ``device`` (the card
+    unless the caller asks for the CPU)."""
+
+    def __init__(self, robot_name_or_urdf: str, eef_name: str = "link7",
+                 assets_root: str | None = None, device="cuda"):
+        path = Path(robot_name_or_urdf)
+        if not path.suffix == ".urdf":
+            root = Path(assets_root or "assets")
+            path = root / "robots/xarm/xarm7.urdf"
+        self.device = resolve_device(device)
+        self.chain = KinematicChain.from_urdf_file(path)
+        self.eef_name = eef_name
+        self.sapien_eef_idx = self.chain.link_index(eef_name)
+        self._ik = make_ik_fn(self.chain, self.sapien_eef_idx, n_active=7)
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def compute_fk_sapien_links(self, qpos, link_idx):
+        q = self._tensor(qpos)
+        return [self.chain.fk_link(q, int(i)).cpu().numpy() for i in link_idx]
+
+    def compute_ik_sapien(self, initial_qpos, cartesian, verbose: bool = False):
+        target = torch.eye(4, device=self.device)
+        target[:3, :3] = tf.euler_to_rot(self._tensor(cartesian[3:6]))
+        target[:3, 3] = self._tensor(cartesian[0:3])
+        q = self._ik(self._tensor(initial_qpos)[None], target[None])[0]
+        return q.cpu().numpy()

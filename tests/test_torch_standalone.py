@@ -39,7 +39,23 @@ def test_importing_the_port_loads_no_jax():
             "real2sim_eval_tpu_torch.kinematics.robot, "
             "real2sim_eval_tpu_torch.utils.gs_processor, "
             "real2sim_eval_tpu_torch.utils.logging, "
-            "real2sim_eval_tpu_torch.utils.transforms_np\n"
+            "real2sim_eval_tpu_torch.utils.transforms_np, "
+            "real2sim_eval_tpu_torch.parallel.mesh, "
+            "real2sim_eval_tpu_torch.kinematics, "
+            "real2sim_eval_tpu_torch.experiments.cli, "
+            "real2sim_eval_tpu_torch.experiments.episode_io, "
+            "real2sim_eval_tpu_torch.experiments.policy_api, "
+            "real2sim_eval_tpu_torch.experiments.eval_policy, "
+            "real2sim_eval_tpu_torch.experiments.eval_policy_batched, "
+            "real2sim_eval_tpu_torch.experiments.eval_policy_parallel, "
+            "real2sim_eval_tpu_torch.experiments.replay, "
+            "real2sim_eval_tpu_torch.experiments.keyboard_teleop, "
+            "real2sim_eval_tpu_torch.experiments.utils.dir_utils, "
+            "real2sim_eval_tpu_torch.experiments.utils.ffmpeg, "
+            "real2sim_eval_tpu_torch.experiments.utils.success, "
+            "real2sim_eval_tpu_torch.experiments.utils.calculate_success_rope, "
+            "real2sim_eval_tpu_torch.experiments.utils.calculate_success_sloth, "
+            "real2sim_eval_tpu_torch.experiments.utils.calculate_success_T\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")
@@ -164,3 +180,37 @@ def test_config_entry_points_need_the_card_unless_asked(monkeypatch,
     online.online = True
     with pytest.raises(NotImplementedError, match="online"):
         GSRenderer(online, device="cpu")
+
+
+def test_cli_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
+    """The CLIs (run on the repo's cfg/ tree), ``KinHelper``, the teleop
+    playground and the mesh default to the card and raise without one;
+    ``KinHelper`` and the playground build with ``device="cpu"``."""
+    from real2sim_eval_tpu_torch import testing as tt
+    from real2sim_eval_tpu_torch.config import load_config
+    from real2sim_eval_tpu_torch.experiments import (eval_policy,
+                                                     eval_policy_batched,
+                                                     eval_policy_parallel,
+                                                     replay)
+    from real2sim_eval_tpu_torch.experiments.keyboard_teleop import (
+        InteractivePlayground)
+    from real2sim_eval_tpu_torch.kinematics import KinHelper
+    from real2sim_eval_tpu_torch.parallel import make_env_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.chdir(tmp_path)      # a run would write under log/
+    for mod in (eval_policy, eval_policy_batched, eval_policy_parallel,
+                replay):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.cli([])
+    assert not (tmp_path / "log").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KinHelper(tt.BUILTIN_URDF)
+    cfg = load_config(REPO / "cfg", "keyboard_teleop")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InteractivePlayground(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_env_mesh()
+    assert KinHelper(tt.BUILTIN_URDF, device="cpu").device.type == "cpu"
+    assert InteractivePlayground(cfg, device="cpu").device.type == "cpu"
