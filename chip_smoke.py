@@ -44,6 +44,15 @@ reference's file layout, and its particles and lane 0's first frames
 bitwise its own evaluator restored to a snapshot and driven directly;
 ``success``; ``cli_single``, bitwise a single env driven with the
 run's recorded actions; ``cli_replay`` in two formats; ``cli_teleop``).
+Then the scene- and asset-building tools run at the flagship's width
+(``rigid_object``: ``create_rigid_phystwin`` on a push-T block;
+``raw_scan``: a 119,000-splat scan of the table and the built-in arm in
+a known frame; ``construct_scene``: its alignment, segmentation and
+articulated preview through K1; ``scan_views``: ``visualize_scan``'s
+orbit views and ``.splat``; ``color_alignment``), and a 64-lane
+evaluator is built from what they wrote and timed
+(``constructed_flagship``: the rigid object, the constructed scan with
+its robot splats articulated every render, the fitted colours).
 Every
 compositor's least time counts only the (pixel, pair) evaluations that
 reach a pixel (``pixel_pair_walks``).
@@ -60,6 +69,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -93,6 +103,29 @@ CLI_REPLAY_STEPS = 10
 CLI_REPLAY_DESCENT = 0.005
 CLI_TELEOP_KEYS = "wwwq"
 CLI_TELEOP_STEPS = 3
+# the scene-building phases (scene_tools): the rigid object's case name;
+# the raw scan's frame against the robot's (a yaw about z, then a shift)
+# and its seed (construct_scene samples the robot with default_rng(i) per
+# link), and the alignment crop's padding around the robot's box
+RIGID_CASE = "rigid_T"
+SCAN_YAW_DEG = 30.0
+SCAN_SHIFT = (0.1, -0.2, 0.05)
+SCAN_SEED = 1
+SCAN_CROP_PAD = 0.05
+# construct_scene's gates, about ten times the alignment error of this
+# scan (0.0103 deg, 0.0897 mm at the flagship's width, numpy and scipy on
+# the host, on a CPU and on the H100's host alike); the share of robot
+# splats labelled with their own link, 0.959 there: the nearest sampled
+# point of a splat where two links meet may lie on the other link, and the
+# base disc of link1 sits at the robot box's z cut
+ALIGN_ROT_DEG = 0.1
+ALIGN_TRANS_MM = 1.0
+TRUE_ID_SHARE = 0.95
+# color_alignment: the share of the real image's pixels replaced by noise,
+# and the fitted map's bound on the clean ones (tests/test_tools.py)
+COLOR_OUTLIERS = 0.1
+COLOR_TOL = 0.02
+TIMED_STEPS_CONSTRUCTED = 5
 # step + render samples each stage breakdown averages: one synchronised
 # sample of a stage can land on a host stall several times its usual length
 BREAKDOWN_REPS = 3
@@ -163,6 +196,14 @@ K3_GATES = {
     # (measured on an H100: x 4.8e-7, v 6.9e-4 as the plain version's own
     # f32-vs-f64 gap, CoM 3.1e-8)
     "pusher": {"x": 5e-6, "v": 1e-2, "com": 5e-7},
+    # the constructed flagship's rigid push-T lattice (817 particles, up
+    # to 50 springs each, self-collision on) settling on the table, one
+    # step after the timed ones (measured on an H100: x 1.7e-6, v 1.7e-4,
+    # CoM 4.0e-8; the plain version's own f32-vs-f64 gap x 4.3e-6). The
+    # object moves 1.2e-5 m in that step, so x's gate lies between the
+    # gap and the no-op kernel's; no self-collision slot is live (its
+    # close pairs are springs), so that mutant is not a must-catch
+    "constructed": {"x": 5e-6, "v": 1e-3, "com": 2e-7},
 }
 # the loop's control step is cut to its first substeps: its ends' collision
 # is chaotic, and by 40 substeps rounding alone flips a hit in the plain
@@ -172,7 +213,8 @@ K3_LOOP_SUBSTEPS = 20
 K3_MUST_CATCH = {"flagship": ("no_op", "no_springs"),
                  "grasp": ("no_op", "no_springs"),
                  "loop": ("no_op", "no_springs", "no_self_collision"),
-                 "pusher": ("no_op", "no_springs", "no_pusher")}
+                 "pusher": ("no_op", "no_springs", "no_pusher"),
+                 "constructed": ("no_op", "no_springs")}
 # the drift test of K3's two-CTA cluster (check_k3_drift): control steps
 # cut to this many substeps, run with these delays (ns, one CTA of each
 # env against the other at every phase boundary)
@@ -2635,6 +2677,447 @@ def run_clis(cfg, root: Path, bare_rate: float) -> None:
     cli_teleop(cfg_dir)
 
 
+# ---------------------------------------------------------------------------
+# scene and asset building, and the flagship built from what it wrote
+# ---------------------------------------------------------------------------
+
+
+def quiet(fn):
+    """``fn()`` with its standard output captured (every line of this
+    script's own is one JSON object); returns (seconds, result, text)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return time.perf_counter() - t0, out, buf.getvalue()
+
+
+def rigid_object(root: Path) -> dict:
+    """``create_rigid_phystwin.main`` on a push-T block (two boxes,
+    ``testing.make_t_block``) with ``--spring_Y 2e3``, the flagship rope's
+    stiffness, and the other flags at their defaults. Gate: the checkpoint
+    read back through physics/checkpoints.py has the counts the tool
+    printed."""
+    import re
+
+    from real2sim_eval_tpu_torch import testing as tt
+    from real2sim_eval_tpu_torch.experiments.utils import create_rigid_phystwin
+    from real2sim_eval_tpu_torch.physics import checkpoints as ckpt_io
+    from real2sim_eval_tpu_torch.utils.mesh import save_obj
+
+    out_dir = root / "rigid"
+    out_dir.mkdir(parents=True)
+    save_obj(tt.make_t_block(), out_dir / "T.obj")
+    seconds, _, text = quiet(lambda: create_rigid_phystwin.main(
+        ["--mesh", str(out_dir / "T.obj"), "--out", str(out_dir),
+         "--case", RIGID_CASE, "--spring_Y", "2e3"]))
+    m = re.search(r"(\d+) points \((\d+) surface, (\d+) interior\), "
+                  r"(\d+) springs", text)
+    if m is None:
+        fail(f"rigid_object: unexpected output {text!r}")
+    n_pts, n_surf, n_int, n_springs = map(int, m.groups())
+    data = ckpt_io.load_final_data(out_dir / "data", RIGID_CASE)
+    first = ckpt_io.load_first_order(out_dir / "experiments", RIGID_CASE)
+    points = np.asarray(data["object_points"])[0]
+    out = {"phase": "rigid_object", "mesh": "push-T, two boxes",
+           "spring_Y": 2e3, "spring_radius": 0.5, "max_neighbours": 50,
+           "points": n_pts, "surface": n_surf, "interior": n_int,
+           "springs": n_springs, "seconds": seconds,
+           "read_back": {"points": int(points.shape[0]),
+                         "springs": int(first["num_object_springs"]),
+                         "spring_Y": float(np.max(first["spring_Y"]))}}
+    emit(out)
+    if (out["read_back"]["points"], out["read_back"]["springs"]) != (
+            n_pts, n_springs) or n_pts != n_surf + n_int:
+        fail(f"rigid_object: the checkpoint does not hold what the tool "
+             f"wrote: {out}")
+    return {"root": out_dir, "points": points}
+
+
+def scan_pose() -> np.ndarray:
+    """The raw scan's frame against the robot's: SCAN_YAW_DEG about z,
+    then SCAN_SHIFT (m)."""
+    a = np.deg2rad(SCAN_YAW_DEG)
+    T = np.eye(4)
+    T[:3, :3] = [[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                 [0.0, 0.0, 1.0]]
+    T[:3, 3] = SCAN_SHIFT
+    return T
+
+
+def raw_scan(root: Path) -> dict:
+    """A raw scan at the flagship's width (``testing.make_raw_scan``):
+    N_TABLE table splats over make_synthetic_scene's extent, 2,000 splats
+    on each of the built-in arm's ten collision surfaces at the canonical
+    pose (another sample than construct_scene's), all moved by
+    ``scan_pose()``, with each splat's true link id. The alignment crop is
+    the robot splats' box in the scan's frame, padded by SCAN_CROP_PAD."""
+    from real2sim_eval_tpu_torch import testing as tt
+    from real2sim_eval_tpu_torch.utils.gs_processor import GSProcessor
+
+    path = root / "raw_scan.ply"
+    t0 = time.perf_counter()
+    ids = tt.make_raw_scan(path, scan_pose(), n_table=N_TABLE,
+                           seed=SCAN_SEED)
+    write_s = time.perf_counter() - t0
+    means = GSProcessor().load(path)["means3D"]
+    robot = means[ids > 0]
+    lo, hi = robot.min(0) - SCAN_CROP_PAD, robot.max(0) + SCAN_CROP_PAD
+    crop = [float(v) for pair in zip(lo, hi) for v in pair]
+    in_crop = np.all((means > lo) & (means < hi), axis=1)
+    links, counts = np.unique(ids[ids > 0], return_counts=True)
+    emit({"phase": "raw_scan", "splats": int(len(ids)),
+          "table": int((ids < 0).sum()), "robot": int((ids > 0).sum()),
+          "per_link": dict(zip(map(str, links.tolist()), counts.tolist())),
+          "scan_yaw_deg": SCAN_YAW_DEG, "scan_shift_m": list(SCAN_SHIFT),
+          "crop": crop, "splats_in_crop": int(in_crop.sum()),
+          "table_in_crop": int((in_crop & (ids < 0)).sum()),
+          "write_s": write_s, "bytes": path.stat().st_size})
+    return {"path": path, "ids": ids, "crop": crop}
+
+
+def transform_error(src: np.ndarray, dst: np.ndarray,
+                    T_true: np.ndarray) -> tuple[float, float]:
+    """The rigid transform taking ``src`` to ``dst`` (Kabsch) against
+    ``T_true``: rotation error in degrees, translation error in mm."""
+    from real2sim_eval_tpu_torch.utils.icp import _kabsch
+
+    T = _kabsch(src.astype(np.float64), dst.astype(np.float64))
+    dR = T[:3, :3].T @ T_true[:3, :3]
+    cos = np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)
+    return (float(np.degrees(np.arccos(cos))),
+            float(1e3 * np.linalg.norm(T[:3, 3] - T_true[:3, 3])))
+
+
+def construct_scene(root: Path, scan: dict) -> dict:
+    """``construct_scene.main`` on the raw scan with ``--crop``,
+    ``--visualize`` and ``--device``, GRIPPER_LINKS patched to the
+    built-in arm's ten collision links (``testing.SCAN_LINKS``: the
+    constants name the xArm's, which simple_arm.urdf lacks). Gates: the
+    scan->robot transform against the known one (ALIGN_ROT_DEG,
+    ALIGN_TRANS_MM); the share of robot splats labelled with their true
+    link (TRUE_ID_SHARE); no table splat labelled robot; one K1 launch
+    for an 848x480 finite preview that differs from the preview at the
+    canonical pose; K1's preview frame bitwise its plain version."""
+    import cv2
+    import torch
+
+    from real2sim_eval_tpu_torch import ext
+    from real2sim_eval_tpu_torch import testing as tt
+    from real2sim_eval_tpu_torch.experiments.utils import construct_scene as cs
+    from real2sim_eval_tpu_torch.kinematics.robot import CANONICAL_ARM_QPOS
+    from real2sim_eval_tpu_torch.renderer import raster
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+    from real2sim_eval_tpu_torch.utils.gs_processor import GSProcessor
+
+    out_ply, mask_path = root / "scene.ply", root / "scene_mask.npy"
+    preview = root / "preview.png"
+    acc = {}
+    seen, undo_k1 = capture(raster, "rasterize_tiles_batch")
+    undo = [undo_k1,
+            patch(cs, "GRIPPER_LINKS", lambda _: list(tt.SCAN_LINKS)),
+            patch(cs, "articulate_preview", stage_timer(acc, "preview"))]
+    ext.reset_launch_counts()
+    try:
+        seconds, _, text = quiet(lambda: cs.main(
+            ["--scan", str(scan["path"]), "--out", str(out_ply),
+             "--mask", str(mask_path), "--urdf", tt.BUILTIN_URDF,
+             "--crop", *map(str, scan["crop"]),
+             "--visualize", str(preview), "--device", DEVICE]))
+    finally:
+        for u in reversed(undo):
+            u()
+    launches = dict(ext.LAUNCHES)
+
+    sp = GSProcessor()
+    raw = sp.load(scan["path"])["means3D"]
+    scene = sp.load(out_ply)
+    mask = np.load(mask_path)
+    ids = scan["ids"]
+    rot_deg, trans_mm = transform_error(raw, scene["means3D"],
+                                        np.linalg.inv(scan_pose()))
+    robot = ids > 0
+    # the preview at the canonical pose the scan was taken in
+    canon = root / "preview_canonical.png"
+    quiet(lambda: cs.articulate_preview(
+        scene, mask, tt.BUILTIN_URDF, np.degrees(CANONICAL_ARM_QPOS),
+        cs.BASE_GRIPPER_COUNTS, canon, device=DEVICE))
+    img, img_canon = cv2.imread(str(preview)), cv2.imread(str(canon))
+    # K1 again on the preview's inputs: the gate below holds it bitwise
+    # the frame the preview was made from
+    args = seen["args"]
+    rgb, depth = tk.rasterize_tiles_batch(*args)
+    out = {"phase": "construct_scene",
+           "gripper_links_patched_to": list(tt.SCAN_LINKS),
+           "flags": ["--crop", "--visualize", "--device", DEVICE],
+           "rotation_err_deg": rot_deg, "translation_err_mm": trans_mm,
+           "robot_splats_found": int((mask >= 0).sum()),
+           "robot_splats_true": int(robot.sum()),
+           "true_id_share": float((mask[robot] == ids[robot]).mean()),
+           "robot_unlabelled": int((mask[robot] < 0).sum()),
+           "table_labelled_robot": int((mask[~robot] >= 0).sum()),
+           "ids": sorted(set(np.unique(mask).tolist())),
+           "preview_ms": acc["preview"], "preview_shape": list(img.shape),
+           "preview_k1_launches": launches["tile_composite"],
+           "preview_pixels_moved_from_canonical": int(
+               (img != img_canon).any(axis=2).sum()),
+           "seconds": seconds, "log": text.strip().splitlines()}
+    emit(out)
+    if rot_deg > ALIGN_ROT_DEG or trans_mm > ALIGN_TRANS_MM:
+        fail(f"construct_scene: the alignment is off by {rot_deg} deg, "
+             f"{trans_mm} mm")
+    if out["true_id_share"] < TRUE_ID_SHARE or out["table_labelled_robot"]:
+        fail(f"construct_scene: the segmentation is wrong: {out}")
+    if (tuple(img.shape) != (480, 848, 3)
+            or out["preview_k1_launches"] != 1
+            or not (bool(torch.isfinite(rgb).all())
+                    and bool(torch.isfinite(depth).all()))
+            or not out["preview_pixels_moved_from_canonical"]):
+        fail(f"construct_scene: bad preview: {out}")
+    gate_vs_plain("construct_scene_k1", {"phase": "construct_scene_k1",
+                                         "pairs": int(args[0].shape[1])},
+                  (rgb, depth), tk.composite_tiles_plain(*args),
+                  tk.rasterize_tiles_batch(args[0], args[1], args[1],
+                                           *args[3:]), bitwise=True)
+    return {"ply": out_ply, "mask": mask_path, "preview": preview,
+            "robot_rows": int((mask > 0).sum()),
+            "splats": int(len(mask))}
+
+
+def scan_views(root: Path, scene: dict) -> None:
+    """``visualize_scan.main`` over the constructed scene with ``--out``,
+    ``--splat`` and ``--device``. Gates: four 640x480 PNGs from four K1
+    launches, a .splat of 32 bytes a splat, and K1's frame of the first
+    view bitwise its plain version."""
+    import cv2
+
+    from real2sim_eval_tpu_torch import ext
+    from real2sim_eval_tpu_torch.experiments.utils import visualize_scan
+    from real2sim_eval_tpu_torch.renderer import raster
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    views, splat = root / "scan_views", root / "scene.splat"
+    seen, undo = capture(raster, "rasterize_tiles_batch")
+    ext.reset_launch_counts()
+    try:
+        seconds, _, _ = quiet(lambda: visualize_scan.main(
+            [str(scene["ply"]), "--out", str(views), "--splat", str(splat),
+             "--device", DEVICE]))
+    finally:
+        undo()
+    launches = dict(ext.LAUNCHES)
+    shapes = [list(cv2.imread(str(p)).shape)
+              for p in sorted(views.glob("*.png"))]
+    out = {"phase": "scan_views", "views": shapes,
+           "k1_launches": launches["tile_composite"],
+           "splat_bytes": splat.stat().st_size,
+           "splat_bytes_expected": 32 * scene["splats"], "seconds": seconds}
+    emit(out)
+    if (shapes != [[480, 640, 3]] * 4 or out["k1_launches"] != 4
+            or out["splat_bytes"] != out["splat_bytes_expected"]):
+        fail(f"scan_views: {out}")
+    args = seen["args"]
+    gate_vs_plain("scan_views_k1", {"phase": "scan_views_k1", "view": 0,
+                                    "pairs": int(args[0].shape[1])},
+                  tk.rasterize_tiles_batch(*args),
+                  tk.composite_tiles_plain(*args),
+                  tk.rasterize_tiles_batch(args[0], args[1], args[1],
+                                           *args[3:]), bitwise=True)
+
+
+def color_alignment(root: Path, scene: dict) -> dict:
+    """``color_alignment.main`` with the preview as the sim image and, as
+    the real one, the preview under a known quadratic colour map (A2, A1, b
+    of tests/test_tools.py), stored as 8-bit, with COLOR_OUTLIERS of its
+    pixels replaced by seeded noise. The map takes the brightest reds past
+    1, which an 8-bit image clips: ``--mask`` leaves those pixels out, as a
+    user masks saturated ones. Gate: the printed map reproduces the clean
+    pixels (inside the mask, not replaced) within COLOR_TOL
+    (tests/test_tools.py's outlier case)."""
+    import re
+
+    import cv2
+
+    from real2sim_eval_tpu_torch.experiments.utils import (
+        color_alignment as ca)
+
+    sim = cv2.imread(str(scene["preview"]))[:, :, ::-1] / 255.0
+    A2, A1 = np.diag([0.2, -0.1, 0.15]), np.diag([0.8, 0.9, 0.7])
+    b = np.array([0.05, 0.0, 0.03])
+    flat = sim.reshape(-1, 3)
+    real = flat ** 2 @ A2.T + flat @ A1.T + b
+    unsaturated = (real <= 1.0).all(axis=1)
+    rng = np.random.default_rng(0)
+    n_bad = int(COLOR_OUTLIERS * len(flat))
+    bad = rng.choice(len(flat), n_bad, replace=False)
+    real[bad] = rng.random((n_bad, 3))
+    real_u8 = np.round(np.clip(real, 0, 1) * 255).astype(np.uint8)
+    real_png, mask_png = root / "real.png", root / "real_mask.png"
+    cv2.imwrite(str(real_png), real_u8.reshape(sim.shape)[:, :, ::-1])
+    cv2.imwrite(str(mask_png), (unsaturated.reshape(sim.shape[:2])
+                                * 255).astype(np.uint8))
+    seconds, _, text = quiet(lambda: ca.main(
+        ["--sim", str(scene["preview"]), "--real", str(real_png),
+         "--mask", str(mask_png)]))
+    nums = [float(v) for v in re.findall(r"-?\d+\.\d+", text.split(
+        "color_A:")[1])]
+    A_fit, b_fit = np.array(nums[:18]).reshape(3, 6), np.array(nums[18:21])
+    clean = np.setdiff1d(np.where(unsaturated)[0], bad)
+    fitted = ca.apply_color_transform(flat[clean], A_fit, b_fit)
+    err = float(np.abs(fitted - real_u8[clean] / 255.0).max())
+    out = {"phase": "color_alignment", "pixels": int(len(flat)),
+           "outliers": n_bad, "saturated": int((~unsaturated).sum()),
+           "clean": int(len(clean)), "max_abs_err_clean": err,
+           "tol": COLOR_TOL, "yaml": text.strip().splitlines(),
+           "seconds": seconds}
+    emit(out)
+    if err > COLOR_TOL:
+        fail(f"color_alignment: the fitted map misses the clean pixels by "
+             f"{err}")
+    return {"color_A": A_fit.reshape(-1).tolist(),
+            "color_b": b_fit.tolist()}
+
+
+def write_constructed_config(root: Path, rigid: dict, scene: dict,
+                             color: dict):
+    """write_flagship_config's flagship with what the tools wrote: the
+    constructed scan and mask with the fitted colour map as ``gs.scene``;
+    the rigid object's splats as ``gs.object`` (the fixture writer with
+    the checkpoint's points as bones and N_OBJ_DENSE body splats); the
+    rigid checkpoint as the physics case, with the tool's spring radius
+    and neighbour count as the loader's (``object_radius``,
+    ``object_max_neighbours``), so that it rebuilds the same springs."""
+    from real2sim_eval_tpu_torch import testing as tt
+
+    gs = tt.make_synthetic_scene(root / "object", rope_pts=rigid["points"],
+                                 n_obj_dense=N_OBJ_DENSE)
+    gs["use_grid_randomization"] = True
+    gs["scene"] = dict(table_splat_path=str(scene["ply"]),
+                       total_mask_path=str(scene["mask"]), **color)
+    return tt.full_cfg(rigid["root"], RIGID_CASE, gs=gs, cameras=tt.CAMERAS,
+                       physics_over=dict(dt=5e-5, self_collision=True,
+                                         object_radius=0.5,
+                                         object_max_neighbours=50))
+
+
+def constructed_flagship(root: Path, rigid: dict, scene: dict, color: dict,
+                         bare_rate: float) -> None:
+    """``BatchedEvaluator(cfg, range(64))`` from write_constructed_config,
+    then TIMED_STEPS_CONSTRUCTED timed steps and renders through run_path
+    and its gates, beside cfg_flagship's rate in this call. K3's and K2's
+    inputs are captured from one more step and render and each kernel is
+    held against its plain version there: K3 on the rigid lattice
+    (check_k3 "constructed"), K2 bitwise on dirty tiles that hold the
+    articulated robot splats. Then the stage breakdown with the robot
+    rows' articulation as its own stage. Gates besides run_path's and the
+    kernels': robot rows = the mask's ids > 0; one K3 and one K2 launch a
+    step; the object's springs finite in every step sampled (the last
+    timed one, the captured one and the breakdown's, each read after its
+    step returned)."""
+    import torch
+
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.physics import fused_step
+    from real2sim_eval_tpu_torch.renderer import incremental
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+    from real2sim_eval_tpu_torch.renderer.scene import RobotArticulation
+
+    cfg = write_constructed_config(root, rigid, scene, color)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev = BatchedEvaluator(cfg, list(range(B_FLAGSHIP)), device=DEVICE)
+    sync()
+    build_s = time.perf_counter() - t0
+    p = ev.assets.params
+    i, j = p.springs[:, 0].long(), p.springs[:, 1].long()
+
+    def strain() -> float:
+        x = ev.state.sm.x
+        return float(((x[:, i] - x[:, j]).norm(dim=-1) / p.rest_lengths
+                      - 1.0).abs().max())
+
+    actions = flagship_actions()
+    launches, out = run_path(
+        "constructed_flagship", ev, actions, TIMED_STEPS_CONSTRUCTED,
+        ("spring_mass_step", "tile_sparse", "tile_composite"), build_s)
+    strains = [strain()]
+
+    k3_seen, undo3 = capture(fused_step, "spring_mass_step")
+    k2_seen, undo2 = capture(incremental, "rasterize_tiles_sparse")
+    try:
+        ev.step(actions)
+        ev.render()
+    finally:
+        undo2()
+        undo3()
+    strains.append(strain())
+    opts, tab, state = k3_seen["args"]
+    check_k3("constructed", opts, tab, state,
+             spring_records=(int(tab.records.records.shape[0])
+                             if tab.records is not None else None))
+    args2 = k2_seen["args"]
+    gate_vs_plain("constructed_k2", {"phase": "constructed_k2",
+                                     "envs": B_FLAGSHIP, "cameras": 2,
+                                     "dirty_tiles": int(args2[1].numel())},
+                  tk.rasterize_tiles_sparse(*args2),
+                  tk.composite_sparse_plain(*args2),
+                  tk.copy_frames(args2[-5], args2[-4]), bitwise=True)
+    del k3_seen, k2_seen, opts, tab, state, args2
+
+    acc = {}
+    undo = patch(RobotArticulation, "apply",
+                 stage_timer(acc, "RobotArticulation.apply"))
+    step_ms = render_ms = 0.0
+    try:
+        for _ in range(BREAKDOWN_REPS):
+            step_ms += timed_stages(ev, acc, lambda: ev.step(actions))
+            strains.append(strain())
+            render_ms += timed_stages(ev, acc, ev.render)
+    finally:
+        undo()
+    n = BREAKDOWN_REPS
+    robot_rows = int(ev._robot_rows.shape[0])
+    res = {"phase": "constructed_flagship_summary", "build_s": build_s,
+           "env_steps_per_s": out["env_steps_per_s"],
+           "cfg_flagship_env_steps_per_s": bare_rate,
+           "physics_ms": out["physics_ms"], "render_ms": out["render_ms"],
+           "gaussians_per_env": out["gaussians_per_env"],
+           "particles": int(ev.state.sm.x.shape[1]),
+           "springs": int(p.springs.shape[0]),
+           "robot_rows": robot_rows, "mask_ids_over_0": scene["robot_rows"],
+           "robot_row_share_of_gaussians": robot_rows
+           / out["gaussians_per_env"],
+           "dirty_tiles_per_camera": out["dirty_tiles_per_camera"],
+           "max_memory_allocated_bytes": out["max_memory_allocated_bytes"],
+           "launches": launches,
+           "max_spring_strain_sampled_steps": strains,
+           "breakdown_reps": n, "breakdown_step_ms": step_ms / n,
+           "breakdown_render_ms": render_ms / n,
+           "breakdown_stages_ms": {k: v / n for k, v in acc.items()}}
+    emit(res)
+    if robot_rows != scene["robot_rows"] or not robot_rows:
+        fail(f"constructed_flagship: {robot_rows} robot rows, the mask has "
+             f"{scene['robot_rows']}")
+    steps = TIMED_STEPS_CONSTRUCTED
+    if launches["spring_mass_step"] != steps or launches["tile_sparse"] != steps:
+        fail(f"constructed_flagship: not one K3 and one K2 launch a step: "
+             f"{launches}")
+    if not np.isfinite(strains).all():
+        fail("constructed_flagship: the object's springs are not finite")
+
+
+def scene_tools(root: Path, bare_rate: float) -> None:
+    """The scene- and asset-building tools on the card at the flagship's
+    width, then a 64-lane evaluator built from what they wrote."""
+    rigid = rigid_object(root)
+    scan = raw_scan(root)
+    scene = construct_scene(root, scan)
+    scan_views(root, scene)
+    color = color_alignment(root, scene)
+    constructed_flagship(root, rigid, scene, color, bare_rate)
+
+
 def device_profiles(runs) -> None:
     """The device's busy share and heaviest operations of each path: for
     each (path, fn, timed units in fn, the unit's unprofiled ms) one
@@ -3336,6 +3819,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         single_env(cfg)
         run_clis(cfg, Path(root), bare_rate)
+        scene_tools(Path(root), bare_rate)
     ik_target = ik_targets(ev, actions)["mimic"]
     device_profiles([
         # one graphed IK solve (copy in, replay, clone out)

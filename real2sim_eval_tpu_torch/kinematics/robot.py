@@ -3,9 +3,11 @@
 Counterpart of the JAX package's kinematics/robot.py ``RobotModel``: the
 per-openness SE(3) pose tables of the gripper fingers (fingers are rigid
 bodies, so one 4x4 per openness sample carries the finger's whole point
-set), the links' collision meshes and their collision origins. The
-point-cloud sampling helpers of the scene-construction tools are not
-here.
+set), the links' collision meshes and their collision origins, and the
+world-posed meshes and sampled point clouds of the scene-construction
+tools (the same rng draws in the same order as the JAX package's, so a
+seed gives the same points). The axis-angle rotation of the JAX module's
+``_rot4`` is ``chain._rot4_np``, which ``fk_numpy`` runs.
 
 Gripper openness convention: openness o in [0, 1] (1 = open); each finger
 joint angle is 0.8 * (1 - o) rad.
@@ -56,6 +58,7 @@ class RobotModel:
             # a link without a collision inherits the previously seen
             # collision origin (the reference's point sampler does so)
             self.offsets[link.name] = prev_offset.copy()
+        self._pcd_cache: dict[tuple, np.ndarray] = {}
 
     def fk_numpy(self, qpos: np.ndarray) -> np.ndarray:
         """All link poses (L, 4, 4) as float64 numpy (host precompute)."""
@@ -127,3 +130,59 @@ class RobotModel:
                 [v @ table[f, s][:3, :3].T + table[f, s][:3, 3]
                  for f, v in enumerate(verts)], axis=0))
         return np.stack(out).astype(np.float32)
+
+    def get_gripper_meshes(self, gripper_openness: float = 1.0,
+                           arm_qpos: np.ndarray | None = None
+                           ) -> list[TriMesh]:
+        """World-frame collision meshes of every loaded link at ``arm_qpos``
+        (the canonical arm pose by default) and the gripper's openness."""
+        arm_qpos = CANONICAL_ARM_QPOS if arm_qpos is None else arm_qpos
+        q = self.full_qpos(arm_qpos, openness=gripper_openness)
+        names = list(self.meshes)
+        poses = self.compute_mesh_poses(q, names)
+        out = []
+        for i, n in enumerate(names):
+            m = self.meshes[n].copy()
+            m.transform(poses[i])
+            out.append(m)
+        return out
+
+    def get_pusher_meshes(self, arm_qpos: np.ndarray | None = None
+                          ) -> list[TriMesh]:
+        return self.get_gripper_meshes(1.0, arm_qpos)
+
+    def sample_pc(self, link_names=None, num_pts=None,
+                  rng: np.random.Generator | None = None
+                  ) -> dict[str, np.ndarray]:
+        """Link-frame Poisson samples of each link's collision mesh, all
+        drawn from one ``rng`` in link order."""
+        link_names = list(link_names or self.meshes.keys())
+        if num_pts is None:
+            num_pts = [200] * len(link_names)
+        rng = rng or np.random.default_rng(0)
+        return {n: self.meshes[n].sample_surface_poisson(k, rng)
+                for n, k in zip(link_names, num_pts)}
+
+    def compute_robot_pcd(self, qpos, link_names=None, num_pts=None,
+                          pcd_name: str | None = None) -> np.ndarray:
+        """World-frame sampled robot point cloud at ``qpos``: link i's
+        points from ``default_rng(i)``, cached by (pcd_name, link, count)
+        when ``pcd_name`` is given."""
+        link_names = list(link_names or self.meshes.keys())
+        if num_pts is None:
+            num_pts = [1000] * len(link_names)
+        elif isinstance(num_pts, int):
+            num_pts = [num_pts] * len(link_names)
+        poses = self.compute_mesh_poses(qpos, link_names)
+        pcs = []
+        for i, n in enumerate(link_names):
+            key = (pcd_name, n, num_pts[i])
+            if pcd_name is None or key not in self._pcd_cache:
+                cloud = self.meshes[n].sample_surface_poisson(
+                    num_pts[i], np.random.default_rng(i))
+                if pcd_name is not None:
+                    self._pcd_cache[key] = cloud
+            else:
+                cloud = self._pcd_cache[key]
+            pcs.append(cloud @ poses[i][:3, :3].T + poses[i][:3, 3])
+        return np.concatenate(pcs, axis=0)

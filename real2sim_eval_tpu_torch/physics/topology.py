@@ -1,7 +1,8 @@
 """Spring topology construction (host-side numpy, reset time).
 
 Counterpart of the JAX package's physics/topology.py: KD-tree hybrid-search
-spring connection and the per-particle neighbour tables the spring step
+spring connection (over all points, or inside each group of a mask)
+and the per-particle neighbour tables the spring step
 gathers through (``nbr_idx``: padded with the particle's own index, -inf
 log stiffness in the padding). The offset-structured (rolled) tables and
 the RCM reordering are kept for parity with the JAX package; the CUDA
@@ -44,6 +45,24 @@ def connect_springs(points: np.ndarray, radius: float, max_neighbours: int,
     if not springs:
         return np.zeros((0, 2), np.int32), np.zeros((0,), np.float32)
     return np.asarray(springs, np.int32), np.asarray(rests, np.float32)
+
+
+def connect_springs_grouped(points: np.ndarray, group_mask: np.ndarray,
+                            radius: float, max_neighbours: int):
+    """``connect_springs`` inside each mask group alone, the groups in
+    sorted order. Returns springs (S, 2) int32 (indices into ``points``),
+    rest_lengths (S,) float32."""
+    springs_all, rests_all = [], []
+    for value in np.unique(group_mask):
+        sel = np.where(group_mask == value)[0]
+        s, r = connect_springs(points[sel], radius, max_neighbours)
+        if len(s):
+            springs_all.append(sel[s])
+            rests_all.append(r)
+    if not springs_all:
+        return np.zeros((0, 2), np.int32), np.zeros((0,), np.float32)
+    return (np.concatenate(springs_all).astype(np.int32),
+            np.concatenate(rests_all).astype(np.float32))
 
 
 def build_neighbor_tables(springs, rest_lengths, spring_Y_log, n_points):

@@ -8,6 +8,11 @@ Two builders, both numpy alone:
   write a PhysTwin checkpoint, splat PLYs, a link mask and a clip mesh,
   and return the config that ``BatchedEvaluator(cfg, ...)`` and
   ``envs.make("BaseEnv-v0", cfg=...)`` build from;
+- the scene-construction inputs (``make_t_block``, ``make_raw_scan``): a
+  T-shaped object mesh for ``create_rigid_phystwin`` and a raw scene scan
+  for ``construct_scene``: a table plane and splats sampled on the
+  built-in arm's collision surfaces, in the scan's own frame, with each
+  splat's true link id;
 - ``make_flagship_assets``, which builds the flagship scene's
   ``BatchedAssets`` directly, without the config build: a 1000-particle
   rope (springs from ``connect_springs``, Y = 2e3) fleshed out by
@@ -34,7 +39,9 @@ from .physics.sdf import build_sdf_grid
 from .physics.topology import build_neighbor_tables, connect_springs
 from .renderer.scene import (XARM_GRIPPER_LINK_IDS, apply_random_pose,
                              grid_random_values, transform_params_by_pose)
-from .utils.mesh import make_box
+from .utils.colormap import colorize_mask
+from .utils.gs_processor import GSProcessor
+from .utils.mesh import make_box, merge_meshes
 from .utils.sh import C0
 from .utils.urdf import BUILTIN_URDF
 
@@ -66,6 +73,13 @@ GRIPPER_LINK_IDS = XARM_GRIPPER_LINK_IDS
 FINGER_LINKS = ("left_finger", "right_finger")
 GRID_XY = [[-0.05, -0.05], [0.0, 0.0], [0.05, 0.05]]
 GRID_THETA = [-10, 0, 10]
+# the synthetic scenes' table: x and y ranges (m) of the z = 0 plane
+TABLE_EXTENT = ((-0.2, 0.8), (-0.5, 0.5))
+# the built-in arm's links with collision geometry, the arm's first: the
+# links a scan of it shows (construct_scene's GRIPPER_LINKS name the
+# xArm's, which simple_arm.urdf lacks)
+SCAN_LINKS = ["link1", "link2", "link3", "link4", "link5", "link6", "link7",
+              "gripper_base_link", "left_finger", "right_finger"]
 
 
 def make_rope_points(n=200, length=0.5, jitter=0.002, seed=0):
@@ -177,7 +191,7 @@ def _splat_params(pts, colors, scale=0.004, opacity=4.0):
 
 def make_synthetic_scene(root, rope_pts=None, ik_urdf=None, seed=0,
                          n_table=400,
-                         table_extent=((-0.2, 0.8), (-0.5, 0.5)),
+                         table_extent=TABLE_EXTENT,
                          n_obj_dense=0):
     """Write object.ply / scene.ply + mask / clip mesh + splats and return
     a gs config dict with cfg/gs/rope.yaml's schema."""
@@ -275,6 +289,65 @@ def make_synthetic_scene(root, rope_pts=None, ik_urdf=None, seed=0,
             azimuth_range=[0, 0],
         )],
     )
+
+
+# ---------------------------------------------------------------------------
+# scene-construction inputs
+# ---------------------------------------------------------------------------
+
+
+def make_t_block():
+    """A push-T block of two 3 cm thick boxes: a 20 x 5 cm bar on a
+    15 x 5 cm stem, resting on z = 0."""
+    bar = make_box((0.20, 0.05, 0.03), center=(0.0, 0.075, 0.015))
+    stem = make_box((0.05, 0.15, 0.03), center=(0.0, -0.025, 0.015))
+    return merge_meshes([bar, stem])
+
+
+def make_raw_scan(path, scan_from_robot, n_table=400, pts_per_link=2000,
+                  seed=1):
+    """Write a raw scene scan to ``path`` and return each splat's true link
+    id (-1 for the table), in the SAPIEN document order construct_scene
+    labels with.
+
+    In the robot's frame: ``n_table`` splats on the z = 0 plane over
+    ``make_synthetic_scene``'s table (its extent, colour and size rule,
+    each colour jittered), then ``pts_per_link`` splats on each of
+    SCAN_LINKS' collision surfaces at the canonical arm pose with the
+    fingers at 750 counts, coloured by link (``colorize_mask``), from
+    ``RobotModel.sample_pc`` with ``default_rng(seed)``: another sample of
+    the surfaces than construct_scene's ``default_rng(i)`` per link. Then
+    every splat (means and orientations) is moved by the 4x4
+    ``scan_from_robot``."""
+    rng = np.random.default_rng(seed)
+    (x0, x1), (y0, y1) = TABLE_EXTENT
+    table = np.stack([rng.uniform(x0, x1, n_table),
+                      rng.uniform(y0, y1, n_table), np.zeros(n_table)], -1)
+    table_scale = float(np.clip(np.sqrt((x1 - x0) * (y1 - y0) / n_table)
+                                * 0.2, 0.0035, 0.01))
+    table_rgb = np.clip([[0.4, 0.35, 0.3]]
+                        + rng.normal(scale=0.06, size=(n_table, 3)), 0, 1)
+
+    robot = RobotModel(BUILTIN_URDF, link_names=SCAN_LINKS)
+    q = np.concatenate([CANONICAL_ARM_QPOS,
+                        np.full(robot.chain.n_dof - 7, (800 - 750) * 0.001)])
+    clouds = robot.sample_pc(SCAN_LINKS, [pts_per_link] * len(SCAN_LINKS),
+                             rng)
+    poses = robot.compute_mesh_poses(q, SCAN_LINKS)
+    pts, ids = [], []
+    for pose, name in zip(poses, SCAN_LINKS):
+        pts.append(clouds[name] @ pose[:3, :3].T + pose[:3, 3])
+        ids.append(np.full(len(clouds[name]),
+                           robot.chain.link_index(name), np.int32))
+    ids = np.concatenate(ids)
+    sp = GSProcessor()
+    params = sp.merge([_splat_params(table, table_rgb, scale=table_scale),
+                       _splat_params(np.concatenate(pts),
+                                     colorize_mask(ids))])
+    T = np.asarray(scan_from_robot, np.float64)
+    params = sp.translate(sp.rotate(params, T[:3, :3]), T[:3, 3])
+    sp.save(params, path)
+    return np.concatenate([np.full(n_table, -1, np.int32), ids])
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's utils/gs_processor.py, over the port's
 utils/ply.py: load/save PLY, crop, merge, rotate, translate, scale,
-apply_mask (the ``.splat`` export and ``add_axis`` wait for the tools).
+apply_mask, add_axis, .splat export.
 Operates on raw (pre-activation) parameter dicts:
   means3D (N,3), sh_colors (N, 3(D+1)^2), log_scales (N,3),
   unnorm_rotations (N,4), logit_opacities (N,1)
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import ply as plylib
+from .sh import C0
 
 
 def _quat_mult(q1, q2):
@@ -87,6 +88,9 @@ class GSProcessor:
     def save(self, params, path) -> None:
         plylib.save_gaussian_ply(params, path)
 
+    def save_to_splat(self, params, path, center=True, rotate=True) -> None:
+        plylib.save_splat(params, path, center=center, rotate=rotate)
+
     def rotate(self, params, rot_mat) -> dict:
         R = np.asarray(rot_mat, np.float32)
         out = dict(params)
@@ -125,6 +129,26 @@ class GSProcessor:
         keys = params_list[0].keys()
         return {k: np.concatenate([np.asarray(p[k]) for p in params_list], 0)
                 for k in keys}
+
+    def add_axis(self, params, length: float = 0.1) -> dict:
+        """Append four opaque axis splats (the origin red, then red, green
+        and blue ``length`` along x, y and z), a debug aid."""
+        n_rest = params["sh_colors"].shape[1] - 3
+        pts = np.array([[0, 0, 0], [length, 0, 0], [0, length, 0],
+                        [0, 0, length]], np.float32)
+        colors = np.array([[1, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]],
+                          np.float32)
+        sh = np.concatenate([(colors - 0.5) / C0,
+                             np.zeros((4, n_rest), np.float32)], 1)
+        axis = {
+            "means3D": pts,
+            "sh_colors": sh,
+            "log_scales": np.log(np.full((4, 3), 0.01, np.float32)),
+            "unnorm_rotations": np.tile(np.array([[1, 0, 0, 0]], np.float32),
+                                        (4, 1)),
+            "logit_opacities": np.full((4, 1), 12.0, np.float32),  # ~1
+        }
+        return self.merge([params, axis])
 
 
 def activate_params(params: dict) -> dict:

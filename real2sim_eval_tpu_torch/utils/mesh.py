@@ -76,6 +76,28 @@ class TriMesh:
                     self.face_normals()[fidx].astype(np.float32))
         return pts.astype(np.float32)
 
+    def sample_surface_poisson(self, n: int,
+                               rng: np.random.Generator | None = None
+                               ) -> np.ndarray:
+        """Approximate Poisson-disk sampling: oversample by area, then
+        greedily grid-thin to ~n well-spread points."""
+        rng = rng or np.random.default_rng(0)
+        dense = self.sample_surface(max(n * 10, 1000), rng)
+        lo, hi = dense.min(0), dense.max(0)
+        extent = float(np.max(hi - lo)) + 1e-9
+        # target spacing from blue-noise packing density on a surface
+        area = float(self.face_areas().sum())
+        r = np.sqrt(area / (2.0 * np.sqrt(3.0) * max(n, 1)))
+        cell = max(r, extent * 1e-4)
+        keys = np.floor((dense - lo) / cell).astype(np.int64)
+        flat = (keys[:, 0] * 73856093 ^ keys[:, 1] * 19349663
+                ^ keys[:, 2] * 83492791)
+        _, first = np.unique(flat, return_index=True)
+        pts = dense[np.sort(first)]
+        if len(pts) > n:
+            pts = pts[rng.choice(len(pts), n, replace=False)]
+        return pts.astype(np.float32)
+
 
 def merge_meshes(meshes: list[TriMesh]) -> TriMesh:
     verts, faces, off = [], [], 0

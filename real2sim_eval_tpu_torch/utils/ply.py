@@ -1,7 +1,7 @@
 """PLY I/O for Gaussian-splat scans, numpy only.
 
 Counterpart of the JAX package's utils/ply.py (its reader, loader, SH
-layout helpers and writer): the header is parsed once and the binary
+layout helpers, writer and ``.splat`` export): the header is parsed once and the binary
 payload mapped as one structured numpy array. The JAX package's optional
 C++ reader (``native/``, via ctypes) is a host speed-up that the port
 does not carry.
@@ -179,3 +179,65 @@ def save_gaussian_ply(params: dict[str, np.ndarray], path: str | Path) -> None:
     with open(path, "wb") as f:
         f.write(header.encode("ascii"))
         f.write(table.tobytes())
+
+
+# antimatter15's .splat record: position, scale, RGBA, quaternion (w x y z)
+# mapped to [0, 255]; 32 bytes a splat, little-endian, no header
+_SPLAT_RECORD = np.dtype([("pos", "<f4", 3), ("scale", "<f4", 3),
+                          ("color", "u1", 4), ("rot", "u1", 4)])
+
+
+def save_splat(params: dict[str, np.ndarray], path: str | Path,
+               center: bool = True, rotate: bool = True) -> None:
+    """Export raw splat params to the antimatter15 ``.splat`` byte format
+    for web viewers: means centred on their mean and turned from z-up to
+    y-up unless asked not to, the DC colour and sigmoid opacity as RGBA
+    bytes, the normalised quaternion as bytes."""
+    from .sh import C0
+
+    pts = np.asarray(params["means3D"], np.float32).copy()
+    sh = np.asarray(params["sh_colors"], np.float32)
+    if sh.ndim == 3:
+        sh = coeffs_to_sh_colors(sh)
+    scales = np.exp(np.asarray(params["log_scales"], np.float32))
+    rots = np.asarray(params["unnorm_rotations"], np.float32)
+    rots = rots / np.maximum(np.linalg.norm(rots, axis=-1, keepdims=True),
+                             1e-12)
+    opac = 1.0 / (1.0 + np.exp(-np.asarray(params["logit_opacities"],
+                                           np.float32)))
+    opac = opac.reshape(-1, 1)
+
+    if center:
+        pts -= pts.mean(axis=0)
+    if rotate:
+        # undo the z-up convention for web viewers (y-up)
+        rot_x = np.linalg.inv(np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]],
+                                       np.float32))
+        pts = pts @ rot_x.T
+        w = np.sqrt(np.maximum(1 + rot_x[0, 0] + rot_x[1, 1] + rot_x[2, 2],
+                               1e-12)) / 2
+        rq = np.array([w,
+                       (rot_x[2, 1] - rot_x[1, 2]) / (4 * w),
+                       (rot_x[0, 2] - rot_x[2, 0]) / (4 * w),
+                       (rot_x[1, 0] - rot_x[0, 1]) / (4 * w)], np.float32)
+        w1, x1, y1, z1 = rq
+        w2, x2, y2, z2 = rots[:, 0], rots[:, 1], rots[:, 2], rots[:, 3]
+        rots = np.stack([
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ], axis=-1)
+
+    color = np.concatenate([0.5 + C0 * sh[:, :3], opac], axis=1)
+    table = np.empty(pts.shape[0], _SPLAT_RECORD)
+    table["pos"] = pts
+    table["scale"] = scales
+    table["color"] = np.clip(color * 255, 0, 255).astype(np.uint8)
+    table["rot"] = np.clip(
+        rots / np.maximum(np.linalg.norm(rots, axis=-1, keepdims=True), 1e-12)
+        * 128 + 128, 0, 255).astype(np.uint8)
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(table.tobytes())

@@ -55,7 +55,15 @@ def test_importing_the_port_loads_no_jax():
             "real2sim_eval_tpu_torch.experiments.utils.success, "
             "real2sim_eval_tpu_torch.experiments.utils.calculate_success_rope, "
             "real2sim_eval_tpu_torch.experiments.utils.calculate_success_sloth, "
-            "real2sim_eval_tpu_torch.experiments.utils.calculate_success_T\n"
+            "real2sim_eval_tpu_torch.experiments.utils.calculate_success_T, "
+            "real2sim_eval_tpu_torch.experiments.utils.create_rigid_phystwin, "
+            "real2sim_eval_tpu_torch.experiments.utils.construct_scene, "
+            "real2sim_eval_tpu_torch.experiments.utils.color_alignment, "
+            "real2sim_eval_tpu_torch.experiments.utils.visualize_scan, "
+            "real2sim_eval_tpu_torch.kinematics.xarm_transforms, "
+            "real2sim_eval_tpu_torch.utils.icp, "
+            "real2sim_eval_tpu_torch.utils.colormap, "
+            "real2sim_eval_tpu_torch.utils.viser_gui\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")
