@@ -52,7 +52,23 @@ articulated preview through K1; ``scan_views``: ``visualize_scan``'s
 orbit views and ``.splat``; ``color_alignment``), and a 64-lane
 evaluator is built from what they wrote and timed
 (``constructed_flagship``: the rigid object, the constructed scan with
-its robot splats articulated every render, the fitted colours).
+its robot splats articulated every render, the fitted colours). The rest
+of the tools follow on the config-built scene: ``ply_native`` (the C++
+and the numpy PLY reader on its table scan and body PLY, bitwise, their
+host ms), ``online_render`` (``GSRenderer`` with ``online: true``:
+``render_online`` twice at 848x480, the viewer's camera orbited between,
+each image bitwise ``render(camera=...)``; the debug dump's two PNGs,
+``test.png`` bitwise the frame), ``profile_physics`` (the tool's physics
+ablation, four variants through K3, each variant's step against K3's
+plain version, and its raster ablation, the full rasterize's K1 frame
+bitwise its plain version), and
+``fan_out`` (``eval_policy_parallel.main`` on the CLI scene at 2 batches
+of 8 lanes: two spawned workers on the one card, then one worker, the
+run directories equal file for file). After the device profiles,
+``trace_step`` traces one step + render of the wide and the fine
+flagship with every stage named, each kernel under the stage that
+launched it (under 5 % of device time outside every stage, the IK the
+most kernels), beside ``device_profile``'s device time.
 Every
 compositor's least time counts only the (pixel, pair) evaluations that
 reach a pixel (``pixel_pair_walks``).
@@ -80,6 +96,9 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from real2sim_eval_tpu_torch.utils.profiling import (  # noqa: E402
+    device_profile, patch, stage_timer, time_host, timed_stages)
 
 B_FLAGSHIP = 64
 N_TABLE = 99000
@@ -133,6 +152,15 @@ BREAKDOWN_REPS = 3
 # operations/s outside the tensor cores, for the kernels' least times
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# the tools phases: reads of each PLY reader (the first reported apart);
+# the fan-out's batches and lanes (the CLI scene of cli_batched, its 30
+# control steps); traced step + render pairs a path, and the share of
+# device time the trace may leave outside every stage
+PLY_READS = 4
+FAN_BATCHES = 2
+FAN_LANES = 8
+TRACE_ITERS = 1
+TRACE_UNATTRIBUTED = 0.05
 # warp boxes (rows, columns) whose culled evaluations pixel_pair_walks
 # counts: K1's 8x16 blocks of the wide tile, and the fine tile whole and
 # split four ways (quadrants, strips)
@@ -204,6 +232,17 @@ K3_GATES = {
     # gap and the no-op kernel's; no self-collision slot is live (its
     # close pairs are springs), so that mutant is not a must-catch
     "constructed": {"x": 5e-6, "v": 1e-3, "com": 2e-7},
+    # profile_physics' four variants (profile_physics_phase): a rope
+    # settling on the ground, the fingers closing above it, with and
+    # without the self-collision table (no slot live: the close pairs are
+    # springs) and the contact table (8 candidates in reach, on the static
+    # box). Measured on an H100: x 7.4e-7, v 4.0e-4, CoM 6.6e-8 with the
+    # colliders, x 1.1e-6, v 8.1e-4, CoM 3.6e-8 without; the no-op and
+    # no-springs kernels >= 2.6e-2
+    "profile_full": {"x": 5e-6, "v": 5e-3, "com": 5e-7},
+    "profile_no-selfcollision": {"x": 5e-6, "v": 5e-3, "com": 5e-7},
+    "profile_no-contact": {"x": 5e-6, "v": 5e-3, "com": 5e-7},
+    "profile_springs-only": {"x": 5e-6, "v": 5e-3, "com": 5e-7},
 }
 # the loop's control step is cut to its first substeps: its ends' collision
 # is chaotic, and by 40 substeps rounding alone flips a hit in the plain
@@ -214,7 +253,13 @@ K3_MUST_CATCH = {"flagship": ("no_op", "no_springs"),
                  "grasp": ("no_op", "no_springs"),
                  "loop": ("no_op", "no_springs", "no_self_collision"),
                  "pusher": ("no_op", "no_springs", "no_pusher"),
-                 "constructed": ("no_op", "no_springs")}
+                 "constructed": ("no_op", "no_springs"),
+                 "profile_full": ("no_op", "no_springs"),
+                 "profile_no-selfcollision": ("no_op", "no_springs"),
+                 "profile_no-contact": ("no_op", "no_springs"),
+                 "profile_springs-only": ("no_op", "no_springs")}
+# profile_physics' physics ablation at the tool's defaults
+PROFILE_BATCH, PROFILE_PARTICLES, PROFILE_SUBSTEPS = 8, 1000, 667
 # the drift test of K3's two-CTA cluster (check_k3_drift): control steps
 # cut to this many substeps, run with these delays (ns, one CTA of each
 # env against the other at every phase boundary)
@@ -273,21 +318,6 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / reps
-
-
-def time_host(fn) -> float:
-    sync()
-    t0 = time.perf_counter()
-    out = fn()
-    sync()
-    return (time.perf_counter() - t0) * 1e3, out
-
-
-def patch(obj, name: str, make):
-    """Replace ``obj.name`` by ``make(original)``; returns the undo."""
-    orig = getattr(obj, name)
-    setattr(obj, name, make(orig))
-    return lambda: setattr(obj, name, orig)
 
 
 def capture(module, name: str):
@@ -1357,12 +1387,9 @@ def mutant_fine_sparse(lib, pairs, inst, tile, starts, ends, rgb_cache,
 
 
 def flagship_actions():
-    import torch
+    from real2sim_eval_tpu_torch.experiments.utils import trace_step
 
-    rot = np.diag([1.0, -1.0, -1.0]).reshape(-1)
-    return torch.tensor(
-        np.tile(np.concatenate([[0.2, 0.0, 0.3], rot, [1.0]]),
-                (B_FLAGSHIP, 1)), dtype=torch.float32, device=DEVICE)
+    return trace_step.flagship_actions(B_FLAGSHIP, DEVICE)
 
 
 def run_path(phase: str, ev, actions, steps: int, kernels, setup_s: float):
@@ -1850,67 +1877,6 @@ def render_parity(ev, ev_s):
             or part["depth_flips"] > part["flips_limit"]):
         fail(f"the culled wrist frames disagree with the unculled path: "
              f"{part}")
-
-
-def stage_timer(acc: dict, label: str):
-    """A ``patch`` maker: the wrapped call adds its synchronised host ms to
-    acc[label]."""
-    def make(orig):
-        def wrapper(*args, **kwargs):
-            ms, out = time_host(lambda: orig(*args, **kwargs))
-            acc[label] = acc.get(label, 0.0) + ms
-            return out
-        return wrapper
-    return make
-
-
-def stages(e) -> list:
-    """(object, attribute, label) of every timed stage of evaluator e's
-    step and render, both kernel families; a stage a path does not run
-    stays out of its breakdown."""
-    from real2sim_eval_tpu_torch.physics import fused_step
-    from real2sim_eval_tpu_torch.renderer import (fine_kernel, incremental,
-                                                  incremental_fine, lbs,
-                                                  precull, raster,
-                                                  tile_kernel)
-
-    return [(e, "_mimic", "mimic (IK + FK)"), (e, "_ik", "IK"),
-            (e, "_env_pre", "grasp + controls"),
-            (fused_step, "freeze", "freezes"),
-            (fused_step, "spring_mass_step", "K3 spring_mass_step"),
-            (e, "compose_dyn", "compose_dyn"),
-            (lbs, "interpolate_motions", "LBS"),
-            (incremental, "bin_dynamic", "dynamic preprocess + binning"),
-            (incremental, "merge_segments", "merge (sort)"),
-            (incremental_fine, "merge_segments", "merge (sort)"),
-            (tile_kernel, "copy_frames", "cache copy"),
-            (fine_kernel, "copy_frames", "cache copy"),
-            (incremental, "rasterize_tiles_sparse",
-             "K2 tile_sparse (incl. cache copy)"),
-            (incremental, "rasterize_tiles_sparse_merge",
-             "K6 tile_sparse_merge (incl. cache copy)"),
-            (incremental_fine, "rasterize_fine_sparse",
-             "K5 fine_sparse (incl. cache copy)"),
-            (e, "render_wrist", "wrist pipeline"),
-            (precull, "cull_static_blocks", "precull static"),
-            (precull, "cull_dynamic_blocks", "precull dynamic"),
-            (raster, "preprocess_gaussians", "wrist preprocess"),
-            (raster, "bin_gaussians", "wrist binning"),
-            (raster, "bin_gaussians_fine", "wrist binning (fine)"),
-            (raster, "rasterize_tiles_batch", "K1 tile_composite"),
-            (raster, "rasterize_fine_batch", "K4 fine_composite")]
-
-
-def timed_stages(e, acc: dict, fn) -> float:
-    """``fn`` with every stage of ``stages(e)`` timed into acc; its own
-    synchronised host ms."""
-    undo = [patch(obj, name, stage_timer(acc, label))
-            for obj, name, label in stages(e)]
-    try:
-        return time_host(fn)[0]
-    finally:
-        for u in reversed(undo):
-            u()
 
 
 def stage_breakdown(ev, ev_s, actions):
@@ -3118,48 +3084,368 @@ def scene_tools(root: Path, bare_rate: float) -> None:
     constructed_flagship(root, rigid, scene, color, bare_rate)
 
 
-def device_profiles(runs) -> None:
+# ---------------------------------------------------------------------------
+# the rest of the tools: the native PLY reader, the online viewer and the
+# debug image dump, the component profiler, the multi-device fan-out and
+# the stage trace
+# ---------------------------------------------------------------------------
+
+
+def ply_native(cfg) -> None:
+    """Both PLY readers, the C++ one (ctypes) and the numpy one, on the
+    config-built flagship's table scan and body PLY. Gate: the tables are
+    bitwise equal. Host ms: each reader's first read and the mean of the
+    next PLY_READS - 1."""
+    from real2sim_eval_tpu_torch.utils import ply
+
+    out = {"phase": "ply_native", "reads": PLY_READS}
+    for name, path in (("table", cfg.gs.scene.table_splat_path),
+                       ("body", cfg.gs.object.path)):
+        tables, ms = {}, {}
+        for reader, fn in (("native", ply.read_ply_vertex_table_native),
+                           ("numpy", ply.read_ply_vertex_table)):
+            ms[reader] = []
+            for _ in range(PLY_READS):
+                t0 = time.perf_counter()
+                tables[reader] = fn(path)
+                ms[reader].append((time.perf_counter() - t0) * 1e3)
+        a, b = tables["native"], tables["numpy"]
+        bitwise = list(a) == list(b) and all(
+            a[k].dtype == b[k].dtype == np.float32
+            and np.array_equal(a[k].view(np.uint32), b[k].view(np.uint32))
+            for k in a)
+        out[name] = {"splats": int(len(b["x"])), "properties": len(b),
+                     "bytes": Path(path).stat().st_size, "bitwise": bitwise,
+                     **{f"{r}_first_ms": v[0] for r, v in ms.items()},
+                     **{f"{r}_ms": float(np.mean(v[1:]))
+                        for r, v in ms.items()}}
+        if not bitwise:
+            fail(f"ply_native: the readers' {name} tables differ")
+    emit(out)
+
+
+def u8_frame(im) -> np.ndarray:
+    """A (3, H, W) frame as the viewer's uint8 (H, W, 3) image."""
+    return (im.cpu().numpy().transpose(1, 2, 0) * 255).astype(np.uint8)
+
+
+def online_render(cfg, root: Path) -> None:
+    """``GSRenderer`` with ``online: true`` (the viewer on a free port) on
+    the flagship's config, one env after a reset: ``render_online`` twice
+    at the renderer's 848x480 camera, ``set_orbit`` moving the viewer's
+    camera between; then the debug dump ``reset_state(visualize_image=
+    True)`` in a directory of its own. Gates: each viewer image equals
+    ``render(camera=...)`` on the same camera bitwise, the second differs
+    from the first, K1 launched by each; both PNGs written, ``test.png``
+    bitwise the frame."""
+    import os
+
+    import cv2
+
+    from real2sim_eval_tpu_torch import envs, ext
+    from real2sim_eval_tpu_torch.config import ConfigNode
+
+    c = ConfigNode(copy.deepcopy(cfg.to_dict()))
+    c.online = True
+    c.viser_port = 0
+    env = envs.make("BaseEnv-v0", cfg=c, randomize=True, device=DEVICE)
+    env.reset(seed=3)
+    r = env.unwrapped.renderer
+    v = r.viser_viewer
+    try:
+        m = r.metadata
+        v.set_metadata(m["w"], m["h"], m["k"], m["w2c"])
+        frames, same, ms, k1 = [], [], [], []
+        for orbit in (None, (0.8, 0.5, 1.0)):
+            if orbit:
+                v.set_orbit(*orbit)
+            ext.reset_launch_counts()
+            t, _ = time_host(r.render_online)
+            k1.append(ext.LAUNCHES["tile_composite"])
+            ms.append(t)
+            frames.append(v._frame.copy())
+            meta = v.get_metadata()
+            ref = u8_frame(r.render(camera=[meta["w"], meta["h"], meta["k"],
+                                            meta["w2c"]])[0])
+            same.append(bool(np.array_equal(frames[-1], ref)))
+        moved = not np.array_equal(frames[0], frames[1])
+        dump = root / "debug_dump"
+        dump.mkdir()
+        cwd = os.getcwd()
+        os.chdir(dump)
+        try:
+            dump_ms, _ = time_host(lambda: r.reset_state(visualize_image=True))
+        finally:
+            os.chdir(cwd)
+        written = sorted(p.name for p in dump.iterdir())
+        png = cv2.imread(str(dump / "test.png"))
+        dump_bitwise = png is not None and np.array_equal(
+            png, u8_frame(r.render()[0])[:, :, ::-1])
+    finally:
+        v.close()
+    emit({"phase": "online_render", "size": [int(m["w"]), int(m["h"])],
+          "gaussians": int(r.rendervar_full["means3D"].shape[0]),
+          "render_online_ms": ms, "viewer_bitwise_render": same,
+          "orbit_moved_frame": moved,
+          "k1_launches_each": k1, "debug_dump_ms": dump_ms,
+          "debug_dump_files": written,
+          "debug_dump_bitwise_frame": dump_bitwise})
+    if not all(same):
+        fail(f"online_render: the viewer's image differs from render(): "
+             f"{same}")
+    if not moved:
+        fail("online_render: the orbit did not change the viewer's image")
+    if min(k1) < 1:
+        fail(f"online_render: K1 launched {k1} times by the two calls")
+    if written != ["test.png", "test_depth.png"] or not dump_bitwise:
+        fail(f"online_render: the debug dump wrote {written}, test.png "
+             f"bitwise the frame: {dump_bitwise}")
+
+
+def profile_physics_phase() -> None:
+    """``profile_physics``' physics ablation (8 envs, a 1000-particle
+    rope, 667 substeps, four variants) and its render ablation (31,000
+    gaussians, 848x480), called as functions. Gates: K3 launched by every
+    call of every variant, K1 by every full rasterize; each variant's
+    control step, captured from one more call, against K3's plain version
+    (``check_k3``, cases ``profile_*``: without self-collision K3 runs
+    with no self-collision table, without colliders with no contact
+    table); the full rasterize's K1 frame bitwise its plain version."""
+    from real2sim_eval_tpu_torch import ext
+    from real2sim_eval_tpu_torch.experiments.utils import profile_physics as pp
+    from real2sim_eval_tpu_torch.physics import fused_step
+    from real2sim_eval_tpu_torch.renderer import raster
+    from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
+
+    ext.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        phys = pp.profile_physics(batch=PROFILE_BATCH, n=PROFILE_PARTICLES,
+                                  substeps=PROFILE_SUBSTEPS, device=DEVICE)
+    k3 = ext.LAUNCHES["spring_mass_step"]
+    ext.reset_launch_counts()
+    k1_seen, undo = capture(raster, "rasterize_tiles_batch")
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            rend = pp.profile_render(device=DEVICE)
+    finally:
+        undo()
+    k1 = ext.LAUNCHES["tile_composite"]
+    emit({"phase": "profile_physics", "batch": PROFILE_BATCH,
+          "particles": PROFILE_PARTICLES, "substeps": PROFILE_SUBSTEPS,
+          "physics": phys, "render": rend, "k3_launches": k3,
+          "k1_launches": k1})
+    want_k3 = sum(1 + row["iters"] for row in phys)
+    if k3 != want_k3:
+        fail(f"profile_physics: K3 launched {k3} times, not {want_k3}")
+    if k1 != 1 + rend[-1]["iters"]:
+        fail(f"profile_physics: K1 launched {k1} times in the full "
+             "rasterize")
+    inp = pp.physics_inputs(pp.profile_scene(PROFILE_BATCH,
+                                             PROFILE_PARTICLES), DEVICE)
+    for name, self_c, has_c in pp.VARIANTS:
+        step = pp.variant_step(PROFILE_SUBSTEPS, DEVICE, self_c, has_c)
+        seen, undo = capture(fused_step, "spring_mass_step")
+        try:
+            step(inp["params"], inp["colliders"] if has_c else None,
+                 inp["state"], inp["ctrl"], inp["rest_x"])
+        finally:
+            undo()
+        check_k3(f"profile_{name}", *seen["args"][:3], variant=name)
+    args = k1_seen["args"]
+    gate_vs_plain("profile_render_k1", {"phase": "profile_render_k1",
+                                        "pairs": int(args[0].shape[1])},
+                  tk.rasterize_tiles_batch(*args),
+                  tk.composite_tiles_plain(*args),
+                  tk.rasterize_tiles_batch(args[0], args[1], args[1],
+                                           *args[3:]), bitwise=True)
+
+
+@contextlib.contextmanager
+def stdout_to_stderr():
+    """This process's standard output, and that of the processes it
+    starts, sent to standard error (every line of this script's own
+    standard output is one JSON object)."""
+    import os
+
+    sys.stdout.flush()
+    saved = os.dup(1)
+    os.dup2(2, 1)
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def tree_gap(a, b) -> tuple:
+    """(leaves, leaves not bitwise equal) of two unpickled state trees."""
+    import torch
+
+    if isinstance(a, dict):
+        parts = [tree_gap(a[k], b[k]) for k in a] if a.keys() == b.keys() \
+            else [(1, 1)]
+    elif isinstance(a, (list, tuple)):
+        parts = [tree_gap(u, w) for u, w in zip(a, b)]
+    elif torch.is_tensor(a):
+        return 1, int(not (a.dtype == b.dtype and torch.equal(a, b)))
+    elif isinstance(a, np.ndarray):
+        return 1, int(not np.array_equal(a, b))
+    else:
+        return 1, int(a != b)
+    return (sum(p[0] for p in parts), sum(p[1] for p in parts))
+
+
+def fan_out(cfg, root: Path) -> None:
+    """``eval_policy_parallel.main`` on the CLI scene of cli_batched at
+    FAN_BATCHES batches of FAN_LANES lanes (30 control steps): two spawned
+    workers on the one card, then one worker (this process). Gates: the
+    same files; JSONs, calibrations and markers byte for byte;
+    ``hydra.yaml`` apart from the run name; the pickled particles
+    (``renderer.x``) bitwise; the JPEG frames within 1 level. A failed
+    worker raises here."""
+    import pickle
+
+    import cv2
+
+    from real2sim_eval_tpu_torch.config import ConfigNode
+    from real2sim_eval_tpu_torch.experiments import eval_policy_parallel as epp
+
+    c = ConfigNode(copy.deepcopy(cfg.to_dict()))
+    c.gs.use_grid_randomization = False
+    c.exp_root = str(root / "fan_log")
+    c.env.sim.duration = CLI_DURATION
+    c.raster_backend = "auto"
+    c.batch_size = FAN_LANES
+    c.episode_start = 0
+    c.checkpoint_every = CLI_CHECKPOINT_EVERY
+    c.telemetry_every = CLI_TELEMETRY_EVERY
+    c.policy = dict(builtin="hold", n_episodes=FAN_LANES * FAN_BATCHES,
+                    inference_cfg_path=None, checkpoint_path=None)
+    card = f"{DEVICE}:0"
+    runs, walls = {}, {}
+    for name, devices in (("two_workers", [card, card]),
+                          ("one_worker", [card])):
+        run_cfg = ConfigNode(copy.deepcopy(c.to_dict()))
+        run_cfg.timestamp = f"fan_{name}"
+        t0 = time.perf_counter()
+        with stdout_to_stderr():
+            runs[name] = Path(epp.main(run_cfg, devices=devices))
+        walls[name] = time.perf_counter() - t0
+    one, two = runs["one_worker"], runs["two_workers"]
+    names, _ = written(one)
+    same_files = names == written(two)[0]
+    gaps = {"bytes_differ": [], "jpg_max_gap": 0, "jpg_bytes_differ": 0,
+            "particles_differ": [], "pickle_leaves": 0,
+            "pickle_leaves_differ": 0, "videos_bytes_differ": 0}
+    for f in sorted(names & written(two)[0]):
+        a, b = one / f, two / f
+        if f.endswith(".jpg"):
+            if a.read_bytes() != b.read_bytes():
+                gaps["jpg_bytes_differ"] += 1
+                gap = np.abs(cv2.imread(str(a)).astype(int)
+                             - cv2.imread(str(b)).astype(int)).max()
+                gaps["jpg_max_gap"] = max(gaps["jpg_max_gap"], int(gap))
+        elif f.endswith(".mp4"):
+            gaps["videos_bytes_differ"] += a.read_bytes() != b.read_bytes()
+        elif f.endswith(".pkl"):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                sa, sb = pickle.load(fa), pickle.load(fb)
+            n, d = tree_gap(sa, sb)
+            gaps["pickle_leaves"] += n
+            gaps["pickle_leaves_differ"] += d
+            if not (sa["renderer"]["x"].dtype == sb["renderer"]["x"].dtype
+                    and np.array_equal(sa["renderer"]["x"].numpy(),
+                                       sb["renderer"]["x"].numpy())):
+                gaps["particles_differ"].append(f)
+        elif f == "hydra.yaml":
+            keep = [[ln for ln in p.read_text().splitlines()
+                     if not ln.startswith("timestamp:")] for p in (a, b)]
+            if keep[0] != keep[1]:
+                gaps["bytes_differ"].append(f)
+        elif a.read_bytes() != b.read_bytes():
+            gaps["bytes_differ"].append(f)
+    n_steps = int(c.physics.fps) * CLI_DURATION
+    episodes = FAN_LANES * FAN_BATCHES
+    expected = episode_paths(episodes, len(c.env.cameras), n_steps) | {
+        f"batch_{i * FAN_LANES:05d}.done" for i in range(FAN_BATCHES)}
+    emit({"phase": "fan_out", "batches": FAN_BATCHES, "lanes": FAN_LANES,
+          "control_steps": n_steps, "devices_two_workers": [card, card],
+          "wall_s": walls, "files": len(names), "same_files": same_files,
+          "layout_ok": names == expected,
+          "episode_steps_per_s": {k: episodes * n_steps / v
+                                  for k, v in walls.items()},
+          **{k: (v[:5] if isinstance(v, list) else v)
+             for k, v in gaps.items()}})
+    if not same_files or names != expected:
+        fail("fan_out: the two runs wrote other files than each other or "
+             "than the reference's layout")
+    if gaps["bytes_differ"] or gaps["particles_differ"]:
+        fail(f"fan_out: files differ: {gaps['bytes_differ'][:5]}, "
+             f"particles {gaps['particles_differ'][:5]}")
+    if gaps["jpg_max_gap"] > 1:
+        fail(f"fan_out: frames differ by {gaps['jpg_max_gap']} levels")
+
+
+def trace_stages(ev, ev_f, actions, profiles: dict) -> None:
+    """``trace_step``'s trace and parse on the flagship evaluators, wide
+    and fine: TRACE_ITERS step + render pairs under ``torch.profiler``
+    with every stage named, each kernel attributed to the stage around
+    its launch. Gates: the card's events are read; under 5 % of device
+    time unattributed; the IK launches the most kernels."""
+    from real2sim_eval_tpu_torch.experiments.utils import trace_step
+
+    for path, e in (("flagship", ev), ("flagship_fine", ev_f)):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            table, wall, _ = trace_step.trace(e, actions, "both",
+                                              TRACE_ITERS, d)
+        n = TRACE_ITERS
+        unattributed = (table.by_stage.get(trace_step.UNATTRIBUTED, 0.0)
+                        / max(table.total_us, 1e-9))
+        top = max(table.counts, key=table.counts.get)
+        per_stage: dict = {}
+        for (stage, name), us in table.by_op.most_common():
+            if len(per_stage.setdefault(stage, [])) < 3:
+                per_stage[stage].append([name[:60], us / 1e3 / n])
+        emit({"phase": "trace_step", "path": path, "iters": n,
+              "source": table.source, "events": table.n_events,
+              "seconds": time.perf_counter() - t0, "traced_wall_ms": wall,
+              "device_ms": table.total_us / 1e3 / n,
+              "device_profile_device_ms": profiles[path]["device_ms"],
+              "unattributed_share": unattributed,
+              "most_kernels": top,
+              "stages_ms": {k: v / 1e3 / n
+                            for k, v in table.by_stage.most_common()},
+              "kernels_per_stage": {k: v / n for k, v in
+                                    table.counts.most_common()},
+              "top_ops_ms": per_stage})
+        if table.source != "device":
+            fail(f"trace_step {path}: the trace holds no device events")
+        if unattributed >= TRACE_UNATTRIBUTED:
+            fail(f"trace_step {path}: {unattributed:.1%} of the device time "
+                 "is outside every stage")
+        if top != "IK":
+            fail(f"trace_step {path}: {top} launches the most kernels, not "
+                 "the IK")
+
+
+def device_profiles(runs) -> dict:
     """The device's busy share and heaviest operations of each path: for
     each (path, fn, timed units in fn, the unit's unprofiled ms) one
     ``device_profile`` of fn. They run after every host-timed phase: host
     work timed after a ``torch.profiler`` session in the same process can
     run slower (PERF.md, Findings), so only the control path that measures
     that follows them."""
+    out = {}
     for path, fn, n_units, unit_ms in runs:
-        prof = device_profile(fn)
+        prof = out[path] = device_profile(fn)
         emit({"phase": "device_profile", "path": path, **prof,
               # over the unprofiled unit (the profiler slows the host, not
               # the device)
               "device_busy_share": prof["device_ms"] / n_units / unit_ms})
-
-
-def device_profile(fn) -> dict:
-    """``fn`` once under ``torch.profiler``: its wall ms (profiled), the
-    device's kernel ms, and the heaviest kernels and operators."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        wall_ms, _ = time_host(fn)
-    events = prof.key_averages()
-    # device rows are the kernels themselves; a CPU operator's self device
-    # time is that of the kernels it launched (the same time again)
-    kernels = sorted((e for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    ops = sorted((e for e in events
-                  if e.device_type == torch.autograd.DeviceType.CPU),
-                 key=lambda e: -e.self_device_time_total)
-
-    def top(rows, n):
-        return [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                for e in rows[:n]]
-
-    return {"profiled_wall_ms": wall_ms,
-            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
-            "kernels_launched": sum(e.count for e in kernels),
-            "top_kernels_ms": top(kernels, 8), "top_ops_ms": top(ops, 10)}
+    return out
 
 
 def measure_kernels(ev, ev_s, actions, launches, launches_s):
@@ -3820,8 +4106,12 @@ def main() -> int:
         single_env(cfg)
         run_clis(cfg, Path(root), bare_rate)
         scene_tools(Path(root), bare_rate)
+        ply_native(cfg)
+        online_render(cfg, Path(root))
+        profile_physics_phase()
+        fan_out(cfg, Path(root))
     ik_target = ik_targets(ev, actions)["mimic"]
-    device_profiles([
+    profiles = device_profiles([
         # one graphed IK solve (copy in, replay, clone out)
         ("ik_replay", lambda: ev._ik(ev.state.qpos7, ik_target), 1,
          ik["replay_ms_one_solve"]),
@@ -3830,6 +4120,7 @@ def main() -> int:
         ("flagship_fine", lambda: (ev_f.step(actions), ev_f.render()), 1,
          flagship_f["total_ms"]),
         ("refinement", refine_five, 5, iter_ms)])
+    trace_stages(ev, ev_f, actions, profiles)
     # the control: the default path timed again, after the profiles
     run_path("flagship_after_profiler", ev, actions, TIMED_STEPS_AFTER,
              ("spring_mass_step", "tile_sparse", "tile_composite"), 0.0)

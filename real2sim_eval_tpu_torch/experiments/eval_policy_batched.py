@@ -1,5 +1,6 @@
 """Batched policy evaluation: B episodes in lockstep on one card (the JAX
-package's experiments/eval_policy_batched.py).
+package's experiments/eval_policy_batched.py); given several devices, the
+batches are dealt out to one worker process each (``fan_out``).
 
 One ``BatchedEvaluator`` advances all B randomized episodes of a batch,
 the policy runs on their stacked observations (host numpy arrays, as the
@@ -14,8 +15,10 @@ Usage:
 
 from __future__ import annotations
 
+import multiprocessing as mp
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -67,13 +70,24 @@ def check_saturation(ev, cnt):
     return drops, phys
 
 
-def main(cfg, device="cuda", stats: dict | None = None):
+def main(cfg, device="cuda", stats: dict | None = None, devices=None,
+         worker: tuple[int, int] = (0, 1)):
     """Evaluate every batch of episodes on ``device``; returns the run
     directory.
 
-    ``stats``, when given, collects the loop's per-phase milliseconds,
-    its byte counts and marks (``cli.PhaseTimer``, whose ``on_mark`` gets
-    the batch's evaluator)."""
+    ``devices``, a list of more than one device, fans the batches out to
+    one worker process per entry instead (``fan_out``); ``worker`` =
+    (k, n) runs only the k-th of every n batches, as worker k of n does.
+    ``stats``, when given, collects the loop's per-phase milliseconds, its
+    byte counts and marks (``cli.PhaseTimer``, whose ``on_mark`` gets the
+    batch's evaluator); it covers one process."""
+    if devices is not None and len(devices) > 1:
+        if stats is not None:
+            raise ValueError("stats covers one process; the fan-out "
+                             "runs several")
+        return fan_out(cfg, devices)
+    if devices:
+        (device,) = devices
     device = resolve_device(device)
     timer = PhaseTimer(stats, device)
     if bool(cfg.gs.get("use_grid_randomization", False)):
@@ -98,7 +112,9 @@ def main(cfg, device="cuda", stats: dict | None = None):
     n_steps = frame_rate * duration
     use_pusher = bool(cfg.env.robot.use_pusher)
 
-    for batch_start in range(start, n_episodes, batch_size):
+    k, n_workers = worker
+    batch_starts = list(range(start, n_episodes, batch_size))
+    for batch_start in batch_starts[k::n_workers]:
         episode_ids = list(range(batch_start,
                                  min(batch_start + batch_size, n_episodes)))
         done_marker = out_path / f"batch_{batch_start:05d}.done"
@@ -203,6 +219,47 @@ def main(cfg, device="cuda", stats: dict | None = None):
             ckpt_path.unlink()
         timer.mark("done")
     return out_path
+
+
+def _worker(cfg, device: str, worker: tuple, threads: int):
+    torch.set_num_threads(threads)
+    return str(main(cfg, device=device, worker=worker))
+
+
+def fan_out(cfg, devices) -> Path:
+    """Run the config's batches on ``devices``, one spawned worker process
+    per entry, batch k on worker k mod n, as the reference deals its
+    episodes out (eval_policy_parallel.py:266-287); returns the run
+    directory. A batch's files, checkpoint and ``.done`` marker belong to
+    one worker, so ``resume`` works as in one process. A worker that fails
+    fails the run, after the others have finished."""
+    devices = [resolve_device(d) for d in devices]
+    cfg = cfg.copy()
+    if not cfg.get("timestamp"):
+        cfg.timestamp = run_name_for(cfg)     # one run directory for all
+    if any(d.type == "cuda" for d in devices):
+        from .. import ext
+
+        ext.load()    # build the kernels once, before the workers load them
+    n = len(devices)
+    # spawn: a CUDA context cannot be forked
+    with ProcessPoolExecutor(max_workers=n,
+                             mp_context=mp.get_context("spawn")) as pool:
+        futures = [pool.submit(_worker, cfg, str(d), (k, n),
+                               torch.get_num_threads())
+                   for k, d in enumerate(devices)]
+        runs, failed = [], []
+        for k, f in enumerate(futures):
+            try:
+                runs.append(f.result())
+            except Exception as e:    # a worker's error, or its death
+                failed.append((k, e))
+    if failed:
+        k, e = failed[0]
+        raise RuntimeError(
+            f"{len(failed)} of {n} eval workers failed; worker {k} on "
+            f"{devices[k]}: {e!r}") from e
+    return Path(runs[0])
 
 
 cli = hydra_like_main("eval_policy_batched")(main)

@@ -12,8 +12,9 @@ Counterpart of the JAX package's renderer/renderer.py for one env:
 State layout: x / v in the world frame (tensors on ``device``), 14-wide
 gripper rows on the host (xyz, vel, quat, quat_vel, openness). Randomized
 draws come from the ``RandomState`` the caller passes, never from numpy's
-global generator. The online viewer (``online: true``) comes with the
-tools and is refused here.
+global generator. With ``online: true`` the renderer serves a live view
+(``utils/viser_gui.ViserViewer`` on ``viser_port``): ``render_online``
+renders the viewer's camera and hands it the frame.
 """
 
 from __future__ import annotations
@@ -48,11 +49,7 @@ class GSRenderer:
                  raster_config: RasterConfig | None = None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if bool(cfg.get("online", False)):
-            raise NotImplementedError(
-                "online: true needs the viser viewer, which the port does "
-                "not carry yet")
-        self.online = False
+        self.online = bool(cfg.get("online", False))
         self.raster_config = raster_config or RasterConfig()
 
         self.metadata: dict = {}
@@ -93,6 +90,13 @@ class GSRenderer:
         self._eef_idx = chain.link_index(
             "link7" if "link7" in chain.link_names else chain.link_names[-1])
         self._ik = make_ik_fn(chain, self._eef_idx, n_active=7)
+
+        self.viser_viewer = None
+        if self.online:
+            from ..utils.viser_gui import ViserViewer
+
+            self.viser_viewer = ViserViewer(
+                port=int(cfg.get("viser_port", 6789)))
 
     # ------------------------------------------------------------------
     # cameras
@@ -291,8 +295,6 @@ class GSRenderer:
 
     def reset_state(self, visualize_image: bool = False,
                     skip_compose: bool = False):
-        if visualize_image:
-            raise NotImplementedError("the debug image dump is not ported")
         xyz0 = np.asarray(self.rendervar["means3D"])
         color0 = np.asarray(self.rendervar["shs"])[:, 0] * C0 + 0.5
         n = min(N_SIM_PARTICLES, len(xyz0))
@@ -303,6 +305,26 @@ class GSRenderer:
         if skip_compose:
             return   # the batched evaluator composes its own frames
         self.update_rendervar()
+        if visualize_image:
+            self._dump_debug_images(*self.render())
+
+    @staticmethod
+    def _dump_debug_images(im, depth):
+        """``test.png`` (the frame) and ``test_depth.png`` (depths under
+        15 m, JET-coloured, the rest black) in the working directory."""
+        import cv2
+
+        im_vis = (to_numpy(im).transpose(1, 2, 0) * 255).astype(
+            np.uint8)[:, :, ::-1]
+        cv2.imwrite("test.png", im_vis)
+        d = to_numpy(depth)
+        mask = d < 15
+        if mask.any():
+            dv = cv2.applyColorMap(
+                cv2.convertScaleAbs(d, alpha=255 / d[mask].max()),
+                cv2.COLORMAP_JET)
+            dv[~mask] = 0
+            cv2.imwrite("test_depth.png", dv)
 
     def get_state(self):
         g = self.grippers
@@ -501,6 +523,21 @@ class GSRenderer:
     def render_wrist_cameras(self):
         frames = [self.render_wrist(camera=c) for c in self.wrist_cameras]
         return [f[0] for f in frames], [f[1] for f in frames]
+
+    def render_online(self, render_data=None, bg=(0.0, 0.0, 0.0)):
+        """Render the online viewer's camera and hand it the uint8 frame;
+        nothing before the viewer has a camera."""
+        if self.viser_viewer is None:
+            raise RuntimeError("render_online needs online: true")
+        meta = self.viser_viewer.get_metadata()
+        if not meta:
+            return
+        im, _ = self.render(camera=[meta["w"], meta["h"], meta["k"],
+                                    meta["w2c"]], bg=bg)
+        self.viser_viewer.set_output(
+            {"image": (to_numpy(im).transpose(1, 2, 0) * 255).astype(
+                np.uint8)})
+        self.viser_viewer.update()
 
     # ------------------------------------------------------------------
     # kinematics

@@ -1,10 +1,14 @@
-"""PLY I/O for Gaussian-splat scans, numpy only.
+"""PLY I/O for Gaussian-splat scans (host code).
 
-Counterpart of the JAX package's utils/ply.py (its reader, loader, SH
-layout helpers, writer and ``.splat`` export): the header is parsed once and the binary
-payload mapped as one structured numpy array. The JAX package's optional
-C++ reader (``native/``, via ctypes) is a host speed-up that the port
-does not carry.
+Counterpart of the JAX package's utils/ply.py (its readers, loader, SH
+layout helpers, writer and ``.splat`` export). ``read_ply_table`` reads a
+binary little-endian table of float properties with the C++ reader
+``csrc/host/ply_loader.cpp`` (built at first use with g++ into the
+package's ``_build/``, loaded through ctypes; ``R2S_NATIVE=0`` turns it
+off); other files, and every file with ``R2S_NATIVE=0``, go through the
+numpy reader, which parses the header once and maps the binary payload as
+one structured array. A reader that fails to build or load raises with
+the compiler's message rather than falling back.
 
 The on-disk layout is the standard 3DGS checkpoint: per-vertex
 ``x y z [nx ny nz] f_dc_0..2 f_rest_0..44 opacity scale_0..2 rot_0..3``.
@@ -12,6 +16,9 @@ The on-disk layout is the standard 3DGS checkpoint: per-vertex
 
 from __future__ import annotations
 
+import ctypes
+import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -86,9 +93,73 @@ def read_ply_vertex_table(path: str | Path) -> dict[str, np.ndarray]:
     raise ValueError(f"{path}: no vertex element found")
 
 
+_NATIVE_SRC = (Path(__file__).resolve().parents[1] / "csrc" / "host"
+               / "ply_loader.cpp")
+_NATIVE_SO = Path(__file__).resolve().parents[1] / "_build" / "libr2s_ply.so"
+_NATIVE: list = []            # the loaded library, once
+
+
+def _native_lib():
+    """The C++ reader, built (when missing or older than its source) and
+    loaded on first use; raises with the compiler's or loader's message."""
+    if _NATIVE:
+        return _NATIVE[0]
+    so = _NATIVE_SO
+    if not so.exists() or so.stat().st_mtime < _NATIVE_SRC.stat().st_mtime:
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        try:
+            subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
+                            "-o", str(tmp), str(_NATIVE_SRC)], check=True,
+                           capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            msg = getattr(e, "stderr", None) or e
+            raise RuntimeError(f"building the native PLY reader "
+                               f"{_NATIVE_SRC} failed: {msg}") from e
+        os.replace(tmp, so)          # atomic: concurrent builds agree
+    try:
+        lib = ctypes.CDLL(str(so))
+    except OSError as e:
+        raise RuntimeError(f"loading the native PLY reader {so} failed: "
+                           f"{e}") from e
+    lib.ply_probe.restype = ctypes.c_int
+    lib.ply_probe.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_long),
+                              ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
+                              ctypes.c_long]
+    lib.ply_read.restype = ctypes.c_int
+    lib.ply_read.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float)]
+    _NATIVE.append(lib)
+    return lib
+
+
+def read_ply_vertex_table_native(path) -> dict[str, np.ndarray] | None:
+    """The vertex table by the C++ reader, every column float32 (f64
+    properties rounded); None for a file it does not handle (not binary
+    little-endian, or a list property)."""
+    lib = _native_lib()
+    n_verts = ctypes.c_long()
+    n_props = ctypes.c_int()
+    names_buf = ctypes.create_string_buffer(16384)
+    p = str(path).encode()
+    if lib.ply_probe(p, ctypes.byref(n_verts), ctypes.byref(n_props),
+                     names_buf, len(names_buf)):
+        return None
+    out = np.empty((n_verts.value, n_props.value), np.float32)
+    if lib.ply_read(p, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))):
+        raise OSError(f"{path}: the native PLY reader could not read the "
+                      "vertex payload")
+    names = names_buf.value.decode().split(",")
+    return {name: out[:, i] for i, name in enumerate(names)}
+
+
 def read_ply_table(path: str | Path) -> tuple[dict[str, np.ndarray], int]:
-    """Raw vertex property table of a PLY: (name -> (N,) column, N)."""
-    t = read_ply_vertex_table(path)
+    """Raw vertex property table of a PLY: (name -> (N,) column, N); the
+    C++ reader's unless ``R2S_NATIVE=0`` or it does not handle the file."""
+    t = None
+    if os.environ.get("R2S_NATIVE", "1") != "0":
+        t = read_ply_vertex_table_native(path)
+    if t is None:
+        t = read_ply_vertex_table(path)
     return t, len(t["x"])
 
 

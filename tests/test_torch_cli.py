@@ -529,7 +529,10 @@ def test_one_card_mesh_places_the_batch():
     assert mean_over_envs(np.arange(4)) == 1.5
     lanes = shard_batch(Lanes(np.ones((2, 3)), 4), mesh)
     assert torch.is_tensor(lanes.x) and lanes.step == 4
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        make_env_mesh(devices=[cpu, cpu])
+    # a mesh naming the CPU twice: one share of the envs per entry
+    shares = shard_batch(tree, make_env_mesh(devices=[cpu, cpu]))
+    assert [s["x"].shape for s in shares] == [(2, 3), (2, 3)]
+    assert all(s["n"] == 3 and torch.equal(s["l"][0], torch.ones(2))
+               for s in shares)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_env_mesh(devices=[])

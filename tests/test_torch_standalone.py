@@ -63,7 +63,12 @@ def test_importing_the_port_loads_no_jax():
             "real2sim_eval_tpu_torch.kinematics.xarm_transforms, "
             "real2sim_eval_tpu_torch.utils.icp, "
             "real2sim_eval_tpu_torch.utils.colormap, "
-            "real2sim_eval_tpu_torch.utils.viser_gui\n"
+            "real2sim_eval_tpu_torch.utils.viser_gui, "
+            "real2sim_eval_tpu_torch.utils.profiling, "
+            "real2sim_eval_tpu_torch.utils.splat_viewer, "
+            "real2sim_eval_tpu_torch.experiments.utils.trace_step, "
+            "real2sim_eval_tpu_torch.experiments.utils.profile_physics, "
+            "real2sim_eval_tpu_torch.experiments.utils.visualize_rollouts\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")
@@ -162,7 +167,7 @@ def test_config_entry_points_need_the_card_unless_asked(monkeypatch,
     """The config-driven entry points (``BatchedEvaluator(cfg, ...)``,
     ``envs.make``, ``BaseEnv``, ``GSRenderer``, ``PhysTwinDynamics``)
     default to the card and raise without one; with ``device="cpu"``
-    they build. ``online: true`` is refused."""
+    they build. ``online: true`` builds the live viewer."""
     import real2sim_eval_tpu_torch.envs as envs
     from real2sim_eval_tpu_torch import testing as tt
     from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
@@ -186,8 +191,12 @@ def test_config_entry_points_need_the_card_unless_asked(monkeypatch,
         assert build(device="cpu") is not None
     online = cfg.copy()
     online.online = True
-    with pytest.raises(NotImplementedError, match="online"):
-        GSRenderer(online, device="cpu")
+    online.viser_port = 0                # a free port
+    renderer = GSRenderer(online, device="cpu")
+    try:
+        assert renderer.online and renderer.viser_viewer.port > 0
+    finally:
+        renderer.viser_viewer.close()
 
 
 def test_cli_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
