@@ -97,8 +97,9 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from real2sim_eval_tpu_torch.utils import profiling  # noqa: E402
 from real2sim_eval_tpu_torch.utils.profiling import (  # noqa: E402
-    device_profile, patch, stage_timer, time_host, timed_stages)
+    device_profile, patch, stage_timer, time_host)
 
 B_FLAGSHIP = 64
 N_TABLE = 99000
@@ -145,8 +146,8 @@ TRUE_ID_SHARE = 0.95
 COLOR_OUTLIERS = 0.1
 COLOR_TOL = 0.02
 TIMED_STEPS_CONSTRUCTED = 5
-# step + render samples each stage breakdown averages: one synchronised
-# sample of a stage can land on a host stall several times its usual length
+# step + render samples each stage breakdown averages: one sample of a
+# stage can land on a host stall several times its usual length
 BREAKDOWN_REPS = 3
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32
 # operations/s outside the tensor cores, for the kernels' least times
@@ -1879,40 +1880,52 @@ def render_parity(ev, ev_s):
              f"{part}")
 
 
+def stamped_stages(fns: list) -> tuple[list, dict]:
+    """``fns`` in turn, BREAKDOWN_REPS times, with the program's recorder
+    stamping its spans and a synchronise after each call: (each call's
+    mean synchronised host ms, the mean ms a rep of each stage's spans: the
+    card's time between their events, the host's where they have none).
+    Nested stages count inside their parents: the IK runs in the mimic and
+    in compose_dyn, the LBS in compose_dyn, the cache copy in K2/K6, the
+    pre-cull, preprocess, binning and K1 in the wrist pipeline."""
+    ms = [0.0] * len(fns)
+    with profiling.recording("stamps") as rec:
+        for _ in range(BREAKDOWN_REPS):
+            for i, fn in enumerate(fns):
+                t0 = time.perf_counter()
+                fn()
+                profiling.anchor()
+                ms[i] += (time.perf_counter() - t0) * 1e3
+        record = rec.read()
+    stages: dict = {}
+    for s in record["spans"]:
+        t0, t1 = s["device"] or s["host"]
+        stages[s["label"]] = (stages.get(s["label"], 0.0)
+                              + (t1 - t0) / BREAKDOWN_REPS)
+    return [m / BREAKDOWN_REPS for m in ms], stages
+
+
 def stage_breakdown(ev, ev_s, actions):
     """Where a flagship control step and render spend their time: the
     mean of BREAKDOWN_REPS more steps and renders of the default path, and
-    renders of the stream path, with a synchronising host timer around each
-    stage (nested stages count inside their parents: the IK runs in the
-    mimic and in compose_dyn, the LBS in compose_dyn, the cache copy in
-    K2/K6, the pre-cull, preprocess, binning and K1 in the wrist
-    pipeline)."""
-    acc, acc_s = {}, {}
-    step_ms = render_ms = stream_render_ms = 0.0
-    for _ in range(BREAKDOWN_REPS):
-        step_ms += timed_stages(ev, acc, lambda: ev.step(actions))
-        render_ms += timed_stages(ev, acc, ev.render)
-        stream_render_ms += timed_stages(ev_s, acc_s, ev_s.render)
-    n = BREAKDOWN_REPS
-    emit({"phase": "breakdown", "reps": n, "step_ms": step_ms / n,
-          "render_ms": render_ms / n,
-          "stages_ms": {k: v / n for k, v in acc.items()},
-          "stream_render_ms": stream_render_ms / n,
-          "stream_render_stages_ms": {k: v / n for k, v in acc_s.items()}})
+    renders of the stream path, each stage timed by its spans
+    (stamped_stages)."""
+    (step_ms, render_ms), stages = stamped_stages(
+        [lambda: ev.step(actions), ev.render])
+    (stream_render_ms,), stream_stages = stamped_stages([ev_s.render])
+    emit({"phase": "breakdown", "reps": BREAKDOWN_REPS, "step_ms": step_ms,
+          "render_ms": render_ms, "stages_ms": stages,
+          "stream_render_ms": stream_render_ms,
+          "stream_render_stages_ms": stream_stages})
 
 
 def fine_breakdown(ev_f, actions):
     """stage_breakdown for the fine family: the mean of BREAKDOWN_REPS
     more steps and renders with each stage timed."""
-    acc = {}
-    step_ms = render_ms = 0.0
-    for _ in range(BREAKDOWN_REPS):
-        step_ms += timed_stages(ev_f, acc, lambda: ev_f.step(actions))
-        render_ms += timed_stages(ev_f, acc, ev_f.render)
-    n = BREAKDOWN_REPS
-    emit({"phase": "breakdown_fine", "reps": n, "step_ms": step_ms / n,
-          "render_ms": render_ms / n,
-          "stages_ms": {k: v / n for k, v in acc.items()}})
+    (step_ms, render_ms), stages = stamped_stages(
+        [lambda: ev_f.step(actions), ev_f.render])
+    emit({"phase": "breakdown_fine", "reps": BREAKDOWN_REPS,
+          "step_ms": step_ms, "render_ms": render_ms, "stages_ms": stages})
 
 
 # ---------------------------------------------------------------------------
@@ -2986,7 +2999,6 @@ def constructed_flagship(root: Path, rigid: dict, scene: dict, color: dict,
     from real2sim_eval_tpu_torch.physics import fused_step
     from real2sim_eval_tpu_torch.renderer import incremental
     from real2sim_eval_tpu_torch.renderer import tile_kernel as tk
-    from real2sim_eval_tpu_torch.renderer.scene import RobotArticulation
 
     cfg = write_constructed_config(root, rigid, scene, color)
     sync()
@@ -3031,17 +3043,9 @@ def constructed_flagship(root: Path, rigid: dict, scene: dict, color: dict,
                   tk.copy_frames(args2[-5], args2[-4]), bitwise=True)
     del k3_seen, k2_seen, opts, tab, state, args2
 
-    acc = {}
-    undo = patch(RobotArticulation, "apply",
-                 stage_timer(acc, "RobotArticulation.apply"))
-    step_ms = render_ms = 0.0
-    try:
-        for _ in range(BREAKDOWN_REPS):
-            step_ms += timed_stages(ev, acc, lambda: ev.step(actions))
-            strains.append(strain())
-            render_ms += timed_stages(ev, acc, ev.render)
-    finally:
-        undo()
+    (step_ms, _, render_ms), stages = stamped_stages(
+        [lambda: ev.step(actions), lambda: strains.append(strain()),
+         ev.render])
     n = BREAKDOWN_REPS
     robot_rows = int(ev._robot_rows.shape[0])
     res = {"phase": "constructed_flagship_summary", "build_s": build_s,
@@ -3058,9 +3062,8 @@ def constructed_flagship(root: Path, rigid: dict, scene: dict, color: dict,
            "max_memory_allocated_bytes": out["max_memory_allocated_bytes"],
            "launches": launches,
            "max_spring_strain_sampled_steps": strains,
-           "breakdown_reps": n, "breakdown_step_ms": step_ms / n,
-           "breakdown_render_ms": render_ms / n,
-           "breakdown_stages_ms": {k: v / n for k, v in acc.items()}}
+           "breakdown_reps": n, "breakdown_step_ms": step_ms,
+           "breakdown_render_ms": render_ms, "breakdown_stages_ms": stages}
     emit(res)
     if robot_rows != scene["robot_rows"] or not robot_rows:
         fail(f"constructed_flagship: {robot_rows} robot rows, the mask has "

@@ -3,9 +3,9 @@ experiments/utils/trace_step.py).
 
 Builds the flagship evaluator (``testing.make_flagship_assets`` and
 ``BatchedEvaluator``), warms it up, then runs ``--iters`` step + render
-pairs under ``utils.profiling.device_trace`` with every stage of
-``utils.profiling.stages`` inside a ``record_function`` range of its
-name (``stage_spans``), and reads the Chrome trace back:
+pairs under ``utils.profiling.device_trace`` with the program's recorder
+in ``profile`` mode, so that every stage's span is a ``record_function``
+range of its name, and reads the Chrome trace back:
 
 - on the card, each kernel, copy and memset is attributed to the
   innermost stage range open on the CPU thread when it was launched. The
@@ -19,10 +19,17 @@ lane). The step and the render are ranges of their own, so work outside
 every named stage lands in "step: other" or "render: other";
 "unattributed" is what ran outside both.
 
+With ``--stamps N`` it then runs N more step + render pairs unprofiled,
+with the recorder stamping and a synchronise after each, and prints the
+record's ``utils.profiling.report`` (the slow steps span by span on the
+host's and the card's clock, the counters, the clock's error).
+
 Usage:
     python -m real2sim_eval_tpu_torch.experiments.utils.trace_step --batch 64
     python -m real2sim_eval_tpu_torch.experiments.utils.trace_step \\
         --what render --kernel fine [--device cpu]
+    python -m real2sim_eval_tpu_torch.experiments.utils.trace_step \\
+        --stamps 240
 """
 
 from __future__ import annotations
@@ -206,20 +213,32 @@ def trace(ev, actions, what: str = "both", iters: int = 3,
     """Warm up, then trace ``iters`` step + render pairs of ``ev`` with
     its stages named; (the parsed table, wall ms an iteration, the trace
     directory)."""
-    from ...utils.profiling import (device_trace, stage_spans,
-                                    sync_devices)
+    from ...utils.profiling import device_trace, recording, sync_devices
 
     one = step_render(ev, actions, what)
     one()
     sync_devices()
     trace_dir = str(out_dir or tempfile.mkdtemp(prefix="trace_step_"))
     t0 = time.perf_counter()
-    with device_trace(trace_dir), stage_spans(ev):
+    with device_trace(trace_dir), recording("profile"):
         for _ in range(iters):
             one()
         sync_devices()
     wall = (time.perf_counter() - t0) * 1e3 / iters
     return parse_trace(trace_dir), wall, trace_dir
+
+
+def stamp(ev, actions, steps: int, what: str = "both") -> dict:
+    """``steps`` step + render pairs of ``ev`` with the recorder stamping,
+    each followed by a synchronise and an anchor; the record."""
+    from ...utils import profiling
+
+    one = step_render(ev, actions, what)
+    with profiling.recording("stamps") as rec:
+        for _ in range(steps):
+            one()
+            profiling.anchor()
+        return rec.read()
 
 
 def flagship_actions(batch: int, device):
@@ -268,6 +287,8 @@ def main(argv=None):
                     choices=("sort", "stream"),
                     help="incremental merge (RasterConfig.merge_kernel)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--stamps", type=int, default=0,
+                    help="stamped step + render pairs after the trace")
     args = ap.parse_args(argv)
 
     from ...utils.device import resolve_device
@@ -282,6 +303,13 @@ def main(argv=None):
     print(f"traced {args.iters} iters to {trace_dir}", flush=True)
     print(f"({table.n_events} {table.source} events)")
     report(table, args.iters, wall)
+    if args.stamps:
+        from ...utils import profiling
+
+        record = stamp(ev, flagship_actions(args.batch, device),
+                       args.stamps, args.what)
+        print(f"\n== {args.stamps} stamped iters ==")
+        print("\n".join(profiling.report(record)))
     return table
 
 

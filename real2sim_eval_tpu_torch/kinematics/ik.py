@@ -27,6 +27,7 @@ import torch
 from ..utils import transforms as tf
 from ..utils.device import resolve_device
 from ..utils.graph import Graphed
+from ..utils.profiling import spanned
 from .chain import KinematicChain, _prismatic, _rot_about_axis
 
 
@@ -231,6 +232,7 @@ def make_ik_fn(chain: KinematicChain, eef_link, n_active: int | None = None,
 
     graph = Graphed(solve)
 
+    @spanned("IK")
     def solver(q_init: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         if q_init.device.type == "cuda":
             return graph(q_init, target)

@@ -21,6 +21,7 @@ import numpy as np
 from ..convert import assets_from_numpy
 from ..renderer.raster import RasterConfig
 from ..utils.device import to_numpy
+from ..utils.profiling import host_span
 
 
 def _snapshot_scene(tree: dict, rend, cfg) -> None:
@@ -96,7 +97,8 @@ def assets_tree(cfg, episode_ids, raster_config: RasterConfig | None = None,
         [], [], [], [], [], []
     pose0_inv = None
     for i, ep in enumerate(episode_ids):
-        env.reset(seed=ep, options={"skip_obs": True})
+        with host_span("reset"):
+            env.reset(seed=ep, options={"skip_obs": True})
         phys = env.unwrapped.physics
         rend = env.unwrapped.renderer
         dumps.append([{"vertices": m.vertices.copy(), "faces": m.faces.copy()}

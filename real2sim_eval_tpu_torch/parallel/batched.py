@@ -56,6 +56,7 @@ from ..renderer.raster import RasterConfig, rasterize, rasterize_batch
 from ..renderer.scene import RobotArticulation
 from ..utils import transforms as tf
 from ..utils.device import resolve_device
+from ..utils.profiling import spanned
 
 
 SPLAT_KEYS = ("means3D", "scales", "rotations", "opacities", "shs")
@@ -258,6 +259,7 @@ class BatchedEvaluator:
     # control step
     # ------------------------------------------------------------------
 
+    @spanned("grasp + controls")
     def _env_pre(self, state: BatchedState, actions: torch.Tensor):
         """Per-env eef bookkeeping + grasp machine -> SubstepControls."""
         a = self.assets
@@ -286,6 +288,7 @@ class BatchedEvaluator:
         return state.replace(sm=sm, grasp=grasp, grippers=grippers,
                              step=state.step + 1)
 
+    @spanned("mimic (IK + FK)")
     def _mimic(self, actions, qpos7, gripper_counts):
         """Velocity-control mimic: IK toward the action pose, a joint step
         clamped to 0.1 rad, FK of the new pose."""
@@ -314,6 +317,7 @@ class BatchedEvaluator:
                                   state.grippers[:, 13] * 800.0)
         return self._physics_step(state.replace(qpos7=new_q), acts)
 
+    @spanned("step: other", new_step=True)
     def step(self, actions, do_velocity_control: bool | None = None):
         """actions: (B, 13) cartesian [xyz, rot9, gripper]."""
         actions = torch.as_tensor(actions, dtype=torch.float32,
@@ -382,6 +386,7 @@ class BatchedEvaluator:
             parts[k].append(shared(a.table[k]))
         return {k: torch.cat(v, dim=1) for k, v in parts.items()}, qpos7
 
+    @spanned("compose_dyn")
     def compose_dyn(self, state: BatchedState, dc_only: bool = False):
         """The gaussians that move, per env: the LBS'd object splats, then
         the articulated robot-link rows of the scan (mask > 0), dict of
@@ -425,6 +430,7 @@ class BatchedEvaluator:
         """Full-scene gaussians per env (diagnostics / golden checks)."""
         return self.compose(self.state)[0]
 
+    @spanned("render: other")
     def render(self):
         """Returns (images (B, C_fixed, 3, H, W), depths (B, C_fixed, H, W),
         wrist images, wrist depths) and updates the cached IK qpos. Render
@@ -512,6 +518,7 @@ class BatchedEvaluator:
         self.state = st.replace(qpos7=qpos_new)
         return batch(ims), batch(depths), batch(wims), batch(wdepths)
 
+    @spanned("wrist pipeline")
     def render_wrist(self, state: BatchedState, dyn: dict,
                      static_cull: bool, dyn_cull: bool):
         """The wrist cameras of the incremental branch: the full pipeline

@@ -29,6 +29,7 @@ import torch
 
 from .. import ext
 from ..utils.device import resolve_device
+from ..utils.profiling import count, counting, span, spanned
 from .spring_mass import (PhysicsOptions, SpringMassState, StepTables,
                           check_state_device, freeze, run_substeps_plain)
 
@@ -159,6 +160,7 @@ def check_tables(opts: PhysicsOptions, tab: StepTables,
         _expect("finger_forces", state.finger_forces, (B, F, 3), dev)
 
 
+@spanned("K3 spring_mass_step")
 def spring_mass_step(opts: PhysicsOptions, tab: StepTables,
                      state: SpringMassState, ranks: int | None = None,
                      drift_ns: int = 0) -> SpringMassState:
@@ -232,6 +234,19 @@ def spring_mass_step(opts: PhysicsOptions, tab: StepTables,
                            telemetry=tab.telemetry)
 
 
+def count_tables(tab: StepTables) -> None:
+    """The control step's counters (``utils.profiling.count``), from its
+    frozen tables: its env-steps, those in which one of K3's caps dropped
+    work (telemetry above 0), and its live contact slots and self-collision
+    rows, summed on the card."""
+    count("env_steps", tab.telemetry.shape[0])
+    count("capped_env_steps", (tab.telemetry > 0).any(1).sum())
+    if tab.cand_ok is not None:
+        count("contact_slots", tab.cand_ok.sum())
+    if tab.sc_ok is not None:
+        count("self_rows", tab.sc_ok.any(-1).sum())
+
+
 def make_fused_step_fn(opts: PhysicsOptions, has_colliders: bool = True,
                        device="cuda"):
     """Fused control step ``step(params, colliders, state, ctrl, rest_x)``:
@@ -244,8 +259,11 @@ def make_fused_step_fn(opts: PhysicsOptions, has_colliders: bool = True,
 
     def step(params, colliders, state, ctrl, rest_x):
         check_state_device(state, dev)
-        tab = freeze(params, opts, colliders if has_colliders else None,
-                     state, ctrl, rest_x)
+        with span("freezes"):
+            tab = freeze(params, opts, colliders if has_colliders else None,
+                         state, ctrl, rest_x)
+        if counting():
+            count_tables(tab)
         if dev.type == "cuda":
             if cache["params"] is not params:
                 cache.update(params=params, records=spring_records(

@@ -50,6 +50,7 @@ from .tile_kernel import (ALPHA_MAX, ALPHA_MIN, T_EPS, TILE_H, TILE_W,
                           merge_segments, rasterize_tiles_batch,
                           rasterize_tiles_sparse,
                           rasterize_tiles_sparse_merge)
+from ..utils.profiling import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +170,7 @@ def build_static_raster(cam: Camera, w2c, scene: dict, sh_degree: int,
                          TILE_W)
 
 
+@spanned("dynamic preprocess + binning")
 def bin_dynamic(cam_static_w2c: list, dyn_scenes: dict, sh_degree: int):
     """Preprocess + exact binning of the dynamic gaussians of B envs for
     every fixed camera, onto each static raster's tiles. Returns (pairs
@@ -296,18 +298,21 @@ def render_incremental(cam_static_w2c: list, dyn_scenes: dict,
         seg[k] for k in ("s_starts", "s_ends", "d_starts", "d_ends"))
     rgb_cache, depth_cache = seg["rgb_cache"], seg["depth_cache"]
     if config.merge_kernel == "stream":
-        rgb, depth = rasterize_tiles_sparse_merge(
-            data_s, data_d, inst, tile, s_starts, s_ends, d_starts, d_ends,
-            rgb_cache, depth_cache, ntx, nty, bg)
+        with span("K6 tile_sparse_merge (incl. cache copy)"):
+            rgb, depth = rasterize_tiles_sparse_merge(
+                data_s, data_d, inst, tile, s_starts, s_ends, d_starts,
+                d_ends, rgb_cache, depth_cache, ntx, nty, bg)
         if stats is not None:
             stats["merged_pairs"] = int((s_ends - s_starts).sum()
                                         + (d_ends - d_starts).sum())
     else:
-        merged, m_starts, m_ends = merge_segments(data_s, s_starts, s_ends,
-                                                  data_d, d_starts, d_ends)
-        rgb, depth = rasterize_tiles_sparse(merged, inst, tile, m_starts,
-                                            m_ends, rgb_cache, depth_cache,
-                                            ntx, nty, bg)
+        with span("merge (sort)"):
+            merged, m_starts, m_ends = merge_segments(
+                data_s, s_starts, s_ends, data_d, d_starts, d_ends)
+        with span("K2 tile_sparse (incl. cache copy)"):
+            rgb, depth = rasterize_tiles_sparse(
+                merged, inst, tile, m_starts, m_ends, rgb_cache,
+                depth_cache, ntx, nty, bg)
         if stats is not None:
             stats["merged_pairs"] = int(merged.shape[1])
     n_dirty = torch.bincount(inst.long(), minlength=seg["n_cams"] * seg["B"])

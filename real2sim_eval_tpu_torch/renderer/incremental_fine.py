@@ -43,6 +43,7 @@ from .incremental import (StaticRaster, dirty_segments, finish_frames,
                           freeze_static, preprocess_static)
 from .raster import RasterConfig, bg_tuple
 from .tile_kernel import GROUPS, TILE_H, TILE_W, merge_segments
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,12 +101,15 @@ def render_incremental_fine(cam_static_w2c: list, dyn_scenes: dict,
     st0 = cam_static_w2c[0][1]
     nsx, nsy = st0.n_super_x, st0.n_super_y
     inst, tile = seg["inst"], seg["tile"]
-    merged, m_starts, m_ends = merge_segments(
-        seg["data_s"], seg["s_starts"], seg["s_ends"], seg["data_d"],
-        seg["d_starts"], seg["d_ends"])
-    rgb, depth = rasterize_fine_sparse(merged, inst, tile, m_starts, m_ends,
-                                       seg["rgb_cache"], seg["depth_cache"],
-                                       nsx, nsy, bg_tuple(bg))
+    with span("merge (sort)"):
+        merged, m_starts, m_ends = merge_segments(
+            seg["data_s"], seg["s_starts"], seg["s_ends"], seg["data_d"],
+            seg["d_starts"], seg["d_ends"])
+    bg = bg_tuple(bg)
+    with span("K5 fine_sparse (incl. cache copy)"):
+        rgb, depth = rasterize_fine_sparse(
+            merged, inst, tile, m_starts, m_ends, seg["rgb_cache"],
+            seg["depth_cache"], nsx, nsy, bg)
     n_inst = seg["n_cams"] * seg["B"]
     il = inst.long()
     n_super = nsx * nsy

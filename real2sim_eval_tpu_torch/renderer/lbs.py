@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import spanned
+
 K_REL = 8       # bone-graph neighbours
 K_WGT = 16      # bones blended per particle
 K_REL_SIMPLE = 16  # bones blended per point on the non-LBS path
@@ -97,6 +99,7 @@ def _col_cross(x, a, b):
                         x[0, a] * x[1, b] - x[1, a] * x[0, b]])
 
 
+@spanned("LBS")
 def interpolate_motions(bones, motions, relations, weights, weights_indices,
                         xyz, env_chunk_bytes: int = 1 << 28):
     """Move gaussians by blended per-bone rigid transforms.

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
+from ..utils.profiling import spanned
 
 BLOCK = 64
 # side-plane padding in pixels: covers the EWA +0.3px low-pass, the ceil
@@ -175,6 +176,7 @@ def _compact(blocks: dict, ok):
     return out, n_vis.to(torch.int32)
 
 
+@spanned("precull static")
 def cull_static_blocks(cam: Camera, w2c_b, static_padded: dict, centers,
                        radii, pad_px: float = PAD_PX):
     """Compact a shared (N, ...) static scene to the blocks visible from a
@@ -195,6 +197,7 @@ def cull_static_blocks(cam: Camera, w2c_b, static_padded: dict, centers,
     return _compact(blocks, ok)
 
 
+@spanned("precull dynamic")
 def cull_dynamic_blocks(cam: Camera, w2c_b, dyn_padded: dict,
                         pad_px: float = PAD_PX):
     """Per-env block cull of a posed (B, N, ...) dynamic scene: the block

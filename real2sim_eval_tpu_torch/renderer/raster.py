@@ -31,6 +31,7 @@ from .preprocess import preprocess_gaussians, tile_rect
 from .tile_kernel import (ALPHA_MAX, ALPHA_MIN, FINE_W, MEDIAN_DEPTH_DEFAULT,
                           T_EPS, TILE_H, TILE_W, rasterize_tiles_batch)
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,8 +98,9 @@ def rasterize(cam: Camera, w2c, means3d, scales, quats, opacities, shs,
     _check_device(means3d, device)
     w2c = torch.as_tensor(w2c, dtype=torch.float32, device=means3d.device)
     if config.backend == "reference":
-        pre = preprocess_gaussians(cam, w2c, means3d, scales, quats,
-                                   opacities, shs, sh_degree)
+        with span("wrist preprocess"):
+            pre = preprocess_gaussians(cam, w2c, means3d, scales, quats,
+                                       opacities, shs, sh_degree)
         bin_w = FINE_W if config.kernel == "fine" else TILE_W
         return _composite_reference(cam, pre, bg_tuple(bg), bin_w=bin_w)
     scenes = {"means3D": means3d[None], "scales": scales[None],
@@ -152,11 +154,16 @@ def rasterize_batch(cam_w2c_list, scenes, sh_degree: int, bg=(0.0, 0.0, 0.0),
     offset = 0
     for cam, w2c_b in cam_w2c_list:
         w2c_b = torch.as_tensor(w2c_b, dtype=torch.float32, device=dev)
-        pre = preprocess_gaussians(cam, w2c_b, scenes["means3D"],
-                                   scenes["scales"], scenes["rotations"],
-                                   scenes["opacities"], shs, sh_degree)
-        bins = (bin_gaussians_fine(pre, n_tx, n_ty) if fine
-                else bin_gaussians(pre, n_tx, n_ty, TILE_W, TILE_H))
+        with span("wrist preprocess"):
+            pre = preprocess_gaussians(cam, w2c_b, scenes["means3D"],
+                                       scenes["scales"], scenes["rotations"],
+                                       scenes["opacities"], shs, sh_degree)
+        if fine:
+            with span("wrist binning (fine)"):
+                bins = bin_gaussians_fine(pre, n_tx, n_ty)
+        else:
+            with span("wrist binning"):
+                bins = bin_gaussians(pre, n_tx, n_ty, TILE_W, TILE_H)
         pair_parts.append(bins["pair_attrs"])
         starts.append(bins["tile_starts"] + offset)
         ends.append(bins["tile_ends"] + offset)
@@ -164,8 +171,9 @@ def rasterize_batch(cam_w2c_list, scenes, sh_degree: int, bg=(0.0, 0.0, 0.0),
         offset += bins["pair_attrs"].shape[1]
     pairs = torch.cat(pair_parts, dim=1)
     composite = rasterize_fine_batch if fine else rasterize_tiles_batch
-    rgb, depth = composite(pairs, torch.cat(starts), torch.cat(ends), n_tx,
-                           n_ty, bg_tuple(bg))
+    starts, ends, bg = torch.cat(starts), torch.cat(ends), bg_tuple(bg)
+    with span("K4 fine_composite" if fine else "K1 tile_composite"):
+        rgb, depth = composite(pairs, starts, ends, n_tx, n_ty, bg)
     n_cams = len(cam_w2c_list)
     rgb = rgb[:, :, :h, :w].reshape(n_cams, B, 3, h, w)
     if clip:

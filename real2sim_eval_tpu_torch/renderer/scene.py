@@ -18,6 +18,7 @@ import torch
 from ..kinematics.chain import KinematicChain
 from ..kinematics.robot import RobotModel
 from ..utils import transforms as tf
+from ..utils.profiling import spanned
 from ..utils.sh import C0
 
 # link-id lists of the xArm URDF variants
@@ -172,6 +173,7 @@ class RobotArticulation:
         eye = torch.eye(4, dtype=delta.dtype, device=delta.device)
         return torch.where(self.active[:, None, None], delta, eye)
 
+    @spanned("articulation")
     def apply(self, qpos_full, means, quats, mask):
         """Re-pose gaussians under per-link deltas gathered by mask id.
         qpos_full (E, n_dof); means (N, 3), quats (N, 4), mask (N,) shared.

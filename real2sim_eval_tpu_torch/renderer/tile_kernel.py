@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from .. import ext
+from ..utils.profiling import spanned
 
 TILE_H = 8
 TILE_W = 128
@@ -106,6 +107,7 @@ def longest_first(starts, ends):
                          stable=True).to(torch.int32)
 
 
+@spanned("cache copy")
 def copy_frames(rgb_cache, depth_cache):
     """(I, 3, Hp, Wp), (I, Hp, Wp) contiguous copies of the cached frames,
     whose leading dims may be broadcast views (one frame per camera)."""

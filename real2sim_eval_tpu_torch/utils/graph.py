@@ -21,6 +21,8 @@ from typing import Callable
 
 import torch
 
+from .profiling import count, host_span
+
 
 def _record(fn: Callable, static_in: tuple):
     """Capture ``fn(*static_in)`` into a CUDA graph on the inputs' device.
@@ -60,13 +62,17 @@ class Graphed:
         key = signature(args)
         entry = self._graphs.get(key)
         if entry is None:
-            static_in = tuple(a.clone() for a in args)
-            replay, out = _record(self.fn, static_in)
+            with host_span("graph capture"):
+                static_in = tuple(a.clone() for a in args)
+                replay, out = _record(self.fn, static_in)
             entry = self._graphs[key] = (static_in, replay, out)
             self.captures += 1
+            count("graph_captures")
+            count(f"graph captures of {[tuple(a.shape) for a in args]}")
         static_in, replay, out = entry
         for s, a in zip(static_in, args):
             s.copy_(a)
         replay()
         self.replays += 1
+        count("graph_replays")
         return out.clone()

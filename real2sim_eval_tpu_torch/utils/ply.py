@@ -23,6 +23,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .profiling import host_span
+
 _PLY_TO_NP = {
     "float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
     "int": "i4", "int32": "i4", "uint": "u4", "uint32": "u4",
@@ -155,11 +157,12 @@ def read_ply_vertex_table_native(path) -> dict[str, np.ndarray] | None:
 def read_ply_table(path: str | Path) -> tuple[dict[str, np.ndarray], int]:
     """Raw vertex property table of a PLY: (name -> (N,) column, N); the
     C++ reader's unless ``R2S_NATIVE=0`` or it does not handle the file."""
-    t = None
-    if os.environ.get("R2S_NATIVE", "1") != "0":
-        t = read_ply_vertex_table_native(path)
-    if t is None:
-        t = read_ply_vertex_table(path)
+    with host_span("PLY read"):
+        t = None
+        if os.environ.get("R2S_NATIVE", "1") != "0":
+            t = read_ply_vertex_table_native(path)
+        if t is None:
+            t = read_ply_vertex_table(path)
     return t, len(t["x"])
 
 

@@ -3,22 +3,27 @@
 ``ScopedTimer`` (the reference's ``wp.ScopedTimer``, off by default),
 ``sync_devices`` and ``StepTimer`` (the entry points' per-step FPS with
 an explicit synchronise) keep the JAX package's surface; ``device_trace``
-is a ``torch.profiler`` session that writes a Chrome trace.
+is a ``torch.profiler`` session that writes a Chrome trace, and
+``device_profile`` sums the kernels of one call under the profiler.
 
-The stage machinery names every stage of a ``BatchedEvaluator``'s step
-and render (``stages``) and instruments them by patching the callables in
-place: ``timed_stages`` adds each stage's synchronised host milliseconds
-to a dict, ``stage_spans`` wraps each in ``torch.profiler.record_function``
-so a trace carries the stage names (``experiments/utils/trace_step.py``
-attributes device time by them), and ``device_profile`` sums the kernels
-of one call under the profiler.
+The program's stages open spans where they run: ``span(label)`` at each
+layer boundary of a ``BatchedEvaluator``'s step and render, ``host_span``
+in the build, ``count(name, value)`` beside them. One module-level
+``Recorder`` (``RECORDER``) decides what they do: nothing (``off``, the
+default), a ``record_function`` range (``profile``, which
+``experiments/utils/trace_step.py`` reads from a trace), or host stamps
+and CUDA events with counters (``stamps``): ``read`` gives the raw record
+after the window, and ``report`` the lines an operator reads of it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import gc
 import os
 import time
+import warnings
 from collections import defaultdict
 from pathlib import Path
 
@@ -139,7 +144,7 @@ class StepTimer:
 
 
 # ---------------------------------------------------------------------------
-# the evaluator's stages
+# patching one call to time it (chip_smoke.py)
 # ---------------------------------------------------------------------------
 
 
@@ -160,79 +165,6 @@ def stage_timer(acc: dict, label: str):
             return out
         return wrapper
     return make
-
-
-def stage_span(label: str):
-    """A ``patch`` maker: the wrapped call runs inside
-    ``torch.profiler.record_function(label)``."""
-    def make(orig):
-        def wrapper(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return orig(*args, **kwargs)
-        return wrapper
-    return make
-
-
-def stages(e) -> list:
-    """(object, attribute, label) of every stage of evaluator e's step and
-    render, both kernel families; a stage a path does not run stays out of
-    its breakdown."""
-    from ..physics import fused_step
-    from ..renderer import (fine_kernel, incremental, incremental_fine, lbs,
-                            precull, raster, tile_kernel)
-
-    return [(e, "_mimic", "mimic (IK + FK)"), (e, "_ik", "IK"),
-            (e, "_env_pre", "grasp + controls"),
-            (fused_step, "freeze", "freezes"),
-            (fused_step, "spring_mass_step", "K3 spring_mass_step"),
-            (e, "compose_dyn", "compose_dyn"),
-            (lbs, "interpolate_motions", "LBS"),
-            (incremental, "bin_dynamic", "dynamic preprocess + binning"),
-            (incremental, "merge_segments", "merge (sort)"),
-            (incremental_fine, "merge_segments", "merge (sort)"),
-            (tile_kernel, "copy_frames", "cache copy"),
-            (fine_kernel, "copy_frames", "cache copy"),
-            (incremental, "rasterize_tiles_sparse",
-             "K2 tile_sparse (incl. cache copy)"),
-            (incremental, "rasterize_tiles_sparse_merge",
-             "K6 tile_sparse_merge (incl. cache copy)"),
-            (incremental_fine, "rasterize_fine_sparse",
-             "K5 fine_sparse (incl. cache copy)"),
-            (e, "render_wrist", "wrist pipeline"),
-            (precull, "cull_static_blocks", "precull static"),
-            (precull, "cull_dynamic_blocks", "precull dynamic"),
-            (raster, "preprocess_gaussians", "wrist preprocess"),
-            (raster, "bin_gaussians", "wrist binning"),
-            (raster, "bin_gaussians_fine", "wrist binning (fine)"),
-            (raster, "rasterize_tiles_batch", "K1 tile_composite"),
-            (raster, "rasterize_fine_batch", "K4 fine_composite")]
-
-
-@contextlib.contextmanager
-def _patched(e, make_for_label):
-    undo = [patch(obj, name, make_for_label(label))
-            for obj, name, label in stages(e)]
-    try:
-        yield
-    finally:
-        for u in reversed(undo):
-            u()
-
-
-def timed_stages(e, acc: dict, fn) -> float:
-    """``fn`` with every stage of ``stages(e)`` timed into acc; its own
-    synchronised host ms."""
-    with _patched(e, lambda label: stage_timer(acc, label)):
-        return time_host(fn)[0]
-
-
-@contextlib.contextmanager
-def stage_spans(e):
-    """Within the block, every stage of ``stages(e)`` runs inside a
-    ``record_function`` range of its label, so a profiler trace names the
-    stage of each operator and of each kernel it launched."""
-    with _patched(e, stage_span):
-        yield
 
 
 def device_profile(fn) -> dict:
@@ -260,3 +192,416 @@ def device_profile(fn) -> dict:
             "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
             "kernels_launched": sum(e.count for e in kernels),
             "top_kernels_ms": top(kernels, 8), "top_ops_ms": top(ops, 10)}
+
+
+# ---------------------------------------------------------------------------
+# spans and counters at the program's stage boundaries
+# ---------------------------------------------------------------------------
+
+MODES = ("off", "profile", "stamps")
+# an anchor is the best of this many event round trips: its error is half
+# the shortest one
+ANCHOR_TRIES = 3
+# the slow steps that ``report`` takes apart: those above this percentile
+# of the window's step walls
+SLOW_PERCENTILE = 90.0
+_NULL = contextlib.nullcontext()
+
+
+class _Stamped:
+    """A span of a ``stamps`` recording: the ``record_function`` range,
+    with a host stamp and (on a card) an event at its enter and exit."""
+
+    __slots__ = ("rec", "label", "device", "new_step", "rf", "row")
+
+    def __init__(self, rec, label: str, device: bool, new_step: bool):
+        self.rec, self.label = rec, label
+        self.device, self.new_step = device, new_step
+
+    def __enter__(self):
+        self.rf = torch.profiler.record_function(self.label)
+        self.rf.__enter__()
+        self.row = self.rec._enter(self.label, self.device, self.new_step)
+        return self
+
+    def __exit__(self, *exc):
+        self.rec._exit(self.row)
+        self.rf.__exit__(*exc)
+        return False
+
+
+class Recorder:
+    """The spans and counters of the program's stages, in one of MODES.
+
+    ``off`` (the default): ``span`` is a flag test and a no-op context.
+    ``profile``: a span is a ``torch.profiler.record_function`` range of
+    its label, so a trace names the stage of each operator and of each
+    kernel it launched (``trace_step.parse_trace``). ``stamps``: the range
+    too, and at the span's enter and exit a host ``perf_counter_ns`` and,
+    on a card, a pooled CUDA event; each span keeps its parent and its
+    control step (``span(..., new_step=True)`` opens the next). Counters
+    are summed per control step, a card's values on the card; Python's
+    garbage collections and the card's synchronising calls (under
+    ``torch.cuda.set_sync_debug_mode("warn")``) are counted too. Nothing
+    synchronises inside a step. ``read`` puts each event on the host clock
+    through the last anchor before its span: an event recorded just after
+    a synchronise and waited for, placed at the middle of its host round
+    trip, whose half is the clock's error (``anchor``)."""
+
+    def __init__(self):
+        self.mode = "off"
+        self._cuda = False
+        self._pool: list = []
+        self._reset()
+
+    def _reset(self):
+        # [label, parent, step, host enter ns, host exit ns, enter event,
+        # exit event]
+        self.spans: list = []
+        self._open: list = []
+        self.step = -1
+        self.counts: dict = {}          # step -> {name: number or tensor}
+        # (first span index, host ns at the round trip's middle, event,
+        # round trip us)
+        self.anchors: list = []
+        self._t0 = time.perf_counter_ns()
+        self._gc_t0 = None
+
+    # -- mode ------------------------------------------------------------
+
+    def start(self, mode: str) -> None:
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if self.mode != "off":
+            raise RuntimeError(f"already recording ({self.mode})")
+        self._release()
+        self._reset()
+        self._cuda = torch.cuda.is_available()
+        self.mode = mode
+        if mode == "stamps":
+            gc.callbacks.append(self._on_gc)
+            if self._cuda:
+                self._warnings = warnings.catch_warnings()
+                self._warnings.__enter__()
+                warnings.filterwarnings("always", message=".*synchroniz")
+                self._showwarning = warnings.showwarning
+                warnings.showwarning = self._on_warning
+                torch.cuda.set_sync_debug_mode("warn")
+                self.anchor()
+
+    def stop(self) -> None:
+        if self.mode == "stamps":
+            gc.callbacks.remove(self._on_gc)
+            if self._cuda:
+                torch.cuda.set_sync_debug_mode("default")
+                self._warnings.__exit__(None, None, None)
+        self.mode = "off"
+
+    # -- spans -------------------------------------------------------------
+
+    def span(self, label: str, new_step: bool = False, device: bool = True):
+        if self.mode == "profile":
+            if new_step:
+                self.step += 1
+            return torch.profiler.record_function(label)
+        return _Stamped(self, label, device and self._cuda, new_step)
+
+    def _event(self):
+        return (self._pool.pop() if self._pool
+                else torch.cuda.Event(enable_timing=True))
+
+    def _enter(self, label: str, device: bool, new_step: bool) -> list:
+        if new_step:
+            self.step += 1
+        ev = self._event() if device else None
+        t = time.perf_counter_ns()
+        if ev is not None:
+            ev.record()
+        row = [label, self._open[-1] if self._open else -1, self.step, t,
+               None, ev, None]
+        self._open.append(len(self.spans))
+        self.spans.append(row)
+        return row
+
+    def _exit(self, row: list) -> None:
+        row[4] = time.perf_counter_ns()
+        if row[5] is not None:
+            ev = self._event()
+            ev.record()
+            row[6] = ev
+        self._open.pop()
+
+    def anchor(self) -> None:
+        """Synchronise and record the anchor of the spans that follow: an
+        event on the idle card, waited for. The card ran it somewhere
+        between the host's stamps before the record and after the wait, so
+        it is placed at their middle, half the round trip either way; of
+        ANCHOR_TRIES such events the one with the shortest round trip is
+        kept. A caller that synchronises every step re-anchors each step,
+        so that no drift builds up between the clocks."""
+        if self.mode != "stamps" or not self._cuda:
+            return
+        torch.cuda.synchronize()
+        best = None
+        for _ in range(ANCHOR_TRIES):
+            ev = self._event()
+            t0 = time.perf_counter_ns()
+            ev.record()
+            # an event recorded on an idle stream may wait in the CUDA
+            # driver's queue until the next launch flushes it: wait for it
+            ev.synchronize()
+            t1 = time.perf_counter_ns()
+            if best is None or t1 - t0 < best[1] - best[0]:
+                if best is not None:
+                    self._pool.append(best[2])
+                best = (t0, t1, ev)
+            else:
+                self._pool.append(ev)
+        t0, t1, ev = best
+        self.anchors.append((len(self.spans), (t0 + t1) // 2, ev,
+                             (t1 - t0) / 1e3))
+
+    # -- counters ----------------------------------------------------------
+
+    def add(self, name: str, value) -> None:
+        d = self.counts.setdefault(self.step, {})
+        d[name] = d[name] + value if name in d else value
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc_t0 = time.perf_counter_ns()
+        elif self._gc_t0 is not None:
+            self.add("gc_collections", 1)
+            self.add("gc_ms", (time.perf_counter_ns() - self._gc_t0) / 1e6)
+            self._gc_t0 = None
+
+    def _on_warning(self, message, category, filename, lineno, file=None,
+                    line=None):
+        if "synchroniz" not in str(message):
+            self._showwarning(message, category, filename, lineno, file, line)
+            return
+        where = self.spans[self._open[-1]][0] if self._open else "outside"
+        self.add("syncs", 1)
+        self.add(f"syncs in {where}", 1)
+
+    # -- reading -----------------------------------------------------------
+
+    def read(self) -> dict:
+        """The record: {"spans": [{label, parent, step, host: [enter,
+        exit], device: [enter, exit] or None, anchor: the index of the
+        anchor that placed device, or -1}], "counts": [[step, name,
+        value]], "anchors": [host ms], "anchor_rtt_us": [each anchor's
+        round trip: twice its error]}, every time in ms on the host clock
+        from the recording's start. Synchronises; call after the
+        window."""
+        if self._cuda:
+            torch.cuda.synchronize()
+        base = self._t0
+        spans, a = [], -1
+        for i, (label, parent, step, h0, h1, e0, e1) in enumerate(self.spans):
+            while a + 1 < len(self.anchors) and self.anchors[a + 1][0] <= i:
+                a += 1
+            dev = None
+            if e1 is not None and a >= 0:
+                _, t_a, ev_a, _ = self.anchors[a]
+                off = (t_a - base) / 1e6
+                dev = [off + ev_a.elapsed_time(e0),
+                       off + ev_a.elapsed_time(e1)]
+            spans.append({"label": label, "parent": parent, "step": step,
+                          "host": [(h0 - base) / 1e6,
+                                   None if h1 is None else (h1 - base) / 1e6],
+                          "device": dev, "anchor": a if dev else -1})
+        counts = [[step, name, float(v)]
+                  for step, d in sorted(self.counts.items())
+                  for name, v in d.items()]
+        return {"spans": spans, "counts": counts,
+                "anchors": [(a[1] - base) / 1e6 for a in self.anchors],
+                "anchor_rtt_us": [a[3] for a in self.anchors]}
+
+    def _release(self) -> None:
+        """Return the record's events to the pool."""
+        for row in self.spans:
+            self._pool.extend(e for e in row[5:] if e is not None)
+        self._pool.extend(a[2] for a in self.anchors)
+
+
+RECORDER = Recorder()
+
+
+def span(label: str, new_step: bool = False):
+    """The context of a stage: a no-op unless the recorder is on (see
+    ``Recorder``); ``new_step`` opens the next control step."""
+    if RECORDER.mode == "off":
+        return _NULL
+    return RECORDER.span(label, new_step)
+
+
+def spanned(label: str, new_step: bool = False):
+    """A decorator: each call of the function runs inside ``span(label,
+    new_step)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if RECORDER.mode == "off":
+                return fn(*args, **kwargs)
+            with RECORDER.span(label, new_step):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def host_span(label: str):
+    """``span`` without a card event: a stage of the build, timed on the
+    host clock alone."""
+    if RECORDER.mode == "off":
+        return _NULL
+    return RECORDER.span(label, device=False)
+
+
+def counting() -> bool:
+    """Whether ``count`` counts: guard a counter that costs work."""
+    return RECORDER.mode == "stamps"
+
+
+def count(name: str, value=1) -> None:
+    """Add ``value`` (a number or a card tensor) to the counter ``name``
+    of the current control step; counts only in ``stamps`` mode."""
+    if RECORDER.mode == "stamps":
+        RECORDER.add(name, value)
+
+
+def anchor() -> None:
+    """``RECORDER.anchor()``: a no-op unless stamping on a card."""
+    RECORDER.anchor()
+
+
+@contextlib.contextmanager
+def recording(mode: str = "stamps"):
+    """The recorder in ``mode`` within the block, with a fresh record;
+    yields the recorder (``read`` it before the block ends or after)."""
+    RECORDER.start(mode)
+    try:
+        yield RECORDER
+    finally:
+        RECORDER.stop()
+
+
+# ---------------------------------------------------------------------------
+# reading a stamps record
+# ---------------------------------------------------------------------------
+
+
+def _ms(pair) -> float:
+    return pair[1] - pair[0]
+
+
+def step_counts(record: dict) -> dict:
+    """{step: {counter: value}} of a record."""
+    out: dict = {}
+    for step, name, v in record["counts"]:
+        out.setdefault(step, {})[name] = v
+    return out
+
+
+def step_walls(record: dict) -> dict:
+    """{step: host ms from its first span's enter to the first anchor
+    after it (the caller's synchronise), else to its last span's exit}."""
+    first, last = {}, {}
+    for s in record["spans"]:
+        if s["step"] < 0 or s["host"][1] is None:
+            continue
+        first.setdefault(s["step"], s["host"][0])
+        last[s["step"]] = max(last.get(s["step"], s["host"][1]),
+                              s["host"][1])
+    anchors = sorted(record["anchors"])
+    out = {}
+    for step, t0 in first.items():
+        after = [t for t in anchors if t >= last[step]]
+        out[step] = (after[0] if after else last[step]) - t0
+    return out
+
+
+def _slow_steps(record: dict, walls: dict, counts: dict) -> list:
+    import numpy as np
+
+    per: dict = {}                      # step -> label -> [host, device]
+    for s in record["spans"]:
+        if s["step"] < 0 or s["host"][1] is None:
+            continue
+        row = per.setdefault(s["step"], {}).setdefault(s["label"],
+                                                       [0.0, None])
+        row[0] += _ms(s["host"])
+        if s["device"] is not None:
+            row[1] = (row[1] or 0.0) + _ms(s["device"])
+    labels = sorted({k for d in per.values() for k in d})
+
+    def med(label, i):
+        xs = [d[label][i] for d in per.values()
+              if label in d and d[label][i] is not None]
+        return float(np.median(xs)) if xs else float("nan")
+
+    cut = float(np.percentile(list(walls.values()), SLOW_PERCENTILE))
+    lines = [f"stamped steps {len(walls)}: wall ms p50 "
+             f"{np.median(list(walls.values())):.2f} p{SLOW_PERCENTILE:g} "
+             f"{cut:.2f}"]
+    for st in sorted(s for s, w in walls.items() if w > cut):
+        c = counts.get(st, {})
+        lines.append(
+            f"slow step {st}: wall {walls[st]:.2f} ms, gc "
+            f"{c.get('gc_collections', 0):.0f} ({c.get('gc_ms', 0.0):.2f} "
+            f"ms), syncs {c.get('syncs', 0):.0f}, graph captures "
+            f"{c.get('graph_captures', 0):.0f}")
+        for label in labels:
+            h, d = per[st].get(label, (0.0, None))
+            lines.append(
+                f"  {label}: host {h:.2f} (median {med(label, 0):.2f}) "
+                f"device {'-' if d is None else f'{d:.2f}'} "
+                f"(median {med(label, 1):.2f})")
+    return lines
+
+
+def report(record: dict) -> list:
+    """Lines that explain the slow steps of a stamps record: for each step
+    whose wall ms (``step_walls``) lies above SLOW_PERCENTILE of the
+    window's,
+    each span's host and device ms beside that span's median over all
+    steps, with the step's garbage collections, synchronising calls and
+    graph captures; then the live contact slots and self-collision rows
+    a lane-step, the anchors' round trips, and the build's spans."""
+    import numpy as np
+
+    walls = step_walls(record)
+    counts = step_counts(record)
+    lines = []
+    if walls:
+        lines += _slow_steps(record, walls, counts)
+    totals: dict = {}
+    for st, d in counts.items():
+        if st >= 0:
+            for k, v in d.items():
+                totals[k] = totals.get(k, 0.0) + v
+    lanes = totals.get("env_steps")
+    if lanes:
+        lines.append(
+            f"a lane-step: live contact slots "
+            f"{totals.get('contact_slots', 0.0) / lanes:.2f}, live "
+            f"self-collision rows {totals.get('self_rows', 0.0) / lanes:.2f}"
+            f", capped {totals.get('capped_env_steps', 0.0):.0f} of "
+            f"{lanes:.0f} env-steps")
+    lines.append("window counts " + " ".join(
+        f"{k}={v:g}" for k, v in sorted(totals.items())))
+    rtt = record["anchor_rtt_us"]
+    if rtt:
+        q = np.percentile(rtt, [50, 90, 100])
+        lines.append(f"anchors {len(rtt)}: round trip us p50 {q[0]:.1f} "
+                     f"p90 {q[1]:.1f} max {q[2]:.1f} (the clock's error is "
+                     f"half)")
+    build: dict = {}
+    for s in record["spans"]:
+        if s["step"] < 0 and s["host"][1] is not None:
+            n, ms = build.get(s["label"], (0, 0.0))
+            build[s["label"]] = (n + 1, ms + _ms(s["host"]))
+    if build:
+        lines.append("build spans " + ", ".join(
+            f"{k} {n}x {ms / 1e3:.2f} s" for k, (n, ms) in build.items()))
+    return lines
