@@ -1,9 +1,9 @@
 // Python binding of the port's CUDA kernels: the only source that includes
 // PyTorch's headers. Callers (renderer/tile_kernel.py,
-// renderer/fine_kernel.py, physics/fused_step.py) validate shapes and
-// allocate outputs; this file checks device, dtype, contiguity and every
-// shape the kernels index through once more, launches on the current stream
-// and checks the launch.
+// renderer/fine_kernel.py, physics/fused_step.py, kinematics/ik.py)
+// validate shapes and allocate outputs; this file checks device, dtype,
+// contiguity and every shape the kernels index through once more, launches
+// on the current stream and checks the launch.
 
 #include <torch/extension.h>
 
@@ -16,6 +16,7 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 
+#include "ik_solve.h"
 #include "spring_mass_step.h"
 #include "tile_composite.h"
 
@@ -363,6 +364,50 @@ void spring_mass_step(
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void ik_solve(torch::Tensor table, torch::Tensor q_init, torch::Tensor target,
+              int64_t n_active, int64_t iters, double damping,
+              double step_scale, double pos_tol, double rot_tol,
+              torch::Tensor q_out) {
+  for (const auto& p : {std::make_pair(&table, "table"),
+                        std::make_pair(&q_init, "q_init"),
+                        std::make_pair(&target, "target"),
+                        std::make_pair(&q_out, "q_out")})
+    check(*p.first, p.second, at::kFloat);
+  TORCH_CHECK(table.dim() == 2 && table.size(1) == IK_TABLE_WIDTH &&
+                  table.size(0) >= 1 && table.size(0) <= IK_MAX_PATH,
+              "table must be (n_path, 24) with 1 <= n_path <= 32");
+  TORCH_CHECK(q_init.dim() == 2 && q_init.size(1) <= IK_MAX_DOF,
+              "q_init must be (E, n) with n <= 64");
+  const int64_t E = q_init.size(0), n = q_init.size(1);
+  TORCH_CHECK(target.dim() == 3 && target.size(0) == E &&
+                  target.size(1) == 4 && target.size(2) == 4,
+              "target must be (E, 4, 4)");
+  TORCH_CHECK(q_out.sizes() == q_init.sizes(), "q_out must match q_init");
+  TORCH_CHECK(n_active >= 0 && n_active <= IK_MAX_ACTIVE && n_active <= n,
+              "n_active must lie in [0, min(31, n)]");
+  TORCH_CHECK(iters >= 0, "iters must be >= 0");
+  for (const auto* t : {&table, &target, &q_out})
+    TORCH_CHECK(t->device() == q_init.device(),
+                "table, q_init, target and q_out must be on one device");
+  IkSolveArgs a{};
+  a.E = static_cast<int>(E);
+  a.n = static_cast<int>(n);
+  a.n_active = static_cast<int>(n_active);
+  a.n_path = static_cast<int>(table.size(0));
+  a.iters = static_cast<int>(iters);
+  a.damping = static_cast<float>(damping);
+  a.step_scale = static_cast<float>(step_scale);
+  a.pos_tol = static_cast<float>(pos_tol);
+  a.rot_tol = static_cast<float>(rot_tol);
+  a.table = table.data_ptr<float>();
+  a.q_init = q_init.data_ptr<float>();
+  a.target = target.data_ptr<float>();
+  a.q_out = q_out.data_ptr<float>();
+  const c10::cuda::CUDAGuard guard(q_init.device());
+  C10_CUDA_CHECK(ik_solve_launch(&a, c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -386,4 +431,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("spring_mass_step", &spring_mass_step,
         "All substeps of one spring-mass control step, one CTA per env or "
         "a cluster of two (CUDA)");
+  m.def("ik_solve", &ik_solve,
+        "The damped-least-squares IK solve, one warp per lane (CUDA)");
 }

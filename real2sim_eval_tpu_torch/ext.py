@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("bind.cpp", "tile_composite.cu", "tile_backward.cu",
            "tile_sparse.cu", "tile_sparse_merge.cu", "fine_composite.cu",
-           "fine_sparse.cu", "spring_mass_step.cu")
+           "fine_sparse.cu", "spring_mass_step.cu", "ik_solve.cu")
 # no --use_fast_math, no contracted multiply-adds: the kernels follow
 # their references comparison for comparison (see the sources' notes)
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a",
@@ -29,7 +29,7 @@ CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a",
 
 LAUNCHES = {"tile_composite": 0, "tile_composite_t": 0, "tile_backward": 0,
             "tile_sparse": 0, "tile_sparse_merge": 0, "fine_composite": 0,
-            "fine_sparse": 0, "spring_mass_step": 0}
+            "fine_sparse": 0, "spring_mass_step": 0, "ik_solve": 0}
 
 
 def reset_launch_counts() -> None:

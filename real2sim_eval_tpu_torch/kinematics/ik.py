@@ -13,6 +13,11 @@ computes the same Jacobian (the tests hold them together) but dispatches
 each of the ~250 ops of one evaluation through its interpreter, which cost
 tens of milliseconds per Gauss-Newton step on the host.
 
+On the card the whole solve is one launch of a hand-written kernel
+(``csrc/ik_solve.cu``: a warp per lane) over the chain's path packed into
+a table (``pack_chain``), bitwise the eager solve; on the CPU it is the
+eager solve, which stays as the kernel's plain version.
+
 ``KinHelper`` is the reference's numpy-in, numpy-out facade over the FK
 and this solve, for the tools (replay's ``qpos`` format).
 """
@@ -24,11 +29,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import ext
 from ..utils import transforms as tf
 from ..utils.device import resolve_device
-from ..utils.graph import Graphed
-from ..utils.profiling import spanned
+from ..utils.profiling import count, spanned
 from .chain import KinematicChain, _prismatic, _rot_about_axis
+
+# csrc/ik_solve.h: floats per path link, and the kernel's limits
+TABLE_WIDTH = 24
+MAX_PATH, MAX_ACTIVE, MAX_DOF = 32, 31, 64
 
 
 def _pose_error(T_cur: torch.Tensor, T_target: torch.Tensor) -> torch.Tensor:
@@ -65,16 +74,11 @@ def fk_link_jvp(chain: KinematicChain, q: torch.Tensor, link: int,
     """Pose of ``link`` (E, 4, 4), the same ops as ``chain.fk_link``, and
     its derivative along q[:, :n_active], (n_active, E, 4, 4), by the
     product rule down the ancestor path."""
-    path = []
-    i = int(link)
-    while i >= 0:
-        path.append(i)
-        i = int(chain.parent[i])
     E = q.shape[0]
     origins, axes = chain.device_tables(q.device, q.dtype)
     P = None
     dP = q.new_zeros((n_active, E, 4, 4))
-    for i in reversed(path):
+    for i in chain_path(chain, link):
         L = origins[i]
         dL, k = None, int(chain.dof_index[i])
         jt = int(chain.joint_type[i])
@@ -191,6 +195,83 @@ def pose_error_jvp(P, dP, target):
     return e, torch.cat([-dP[..., :3, 3], daa], dim=-1)
 
 
+def chain_path(chain: KinematicChain, link: int) -> list:
+    """The links from the root down to ``link``."""
+    path = []
+    i = int(link)
+    while i >= 0:
+        path.append(i)
+        i = int(chain.parent[i])
+    return path[::-1]
+
+
+def pack_chain(chain: KinematicChain, link: int) -> np.ndarray:
+    """The kernel's table of the path from the root to ``link``: (n_path,
+    24) float32, a row a link, root first: [joint type (0 fixed, 1
+    revolute, 2 prismatic), dof index (-1 if fixed), axis x y z, origin
+    (4 x 4, row-major), 0, 0, 0], the float32 of the chain's tables as
+    ``device_tables`` makes them."""
+    path = chain_path(chain, link)
+    table = np.zeros((len(path), TABLE_WIDTH), np.float32)
+    for r, i in enumerate(path):
+        table[r, 0] = chain.joint_type[i]
+        table[r, 1] = chain.dof_index[i]
+        table[r, 2:5] = np.asarray(chain.axes[i], np.float32)
+        table[r, 5:21] = np.asarray(chain.origins[i], np.float32).ravel()
+    return table
+
+
+def check_ik_inputs(table: torch.Tensor, q_init: torch.Tensor,
+                    target: torch.Tensor, n_active: int, width: int) -> None:
+    """Raise ValueError unless the kernel can take these: float32,
+    contiguous, on one CUDA device; table (n_path, 24) with n_path <= 32,
+    q_init (E, n) with ``width`` <= n <= 64 (``width``: one more than the
+    path's largest dof index), target (E, 4, 4), 0 <= n_active <= min(31,
+    n). The kernel reads them unchecked."""
+    for name, x in (("table", table), ("q_init", q_init),
+                    ("target", target)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != q_init.device:
+            raise ValueError(f"{name} is on {x.device}, q_init on "
+                             f"{q_init.device}")
+    if (table.dim() != 2 or table.shape[1] != TABLE_WIDTH
+            or not 1 <= table.shape[0] <= MAX_PATH):
+        raise ValueError(f"table must be (n_path, {TABLE_WIDTH}) with 1 <= "
+                         f"n_path <= {MAX_PATH}, got {tuple(table.shape)}")
+    if q_init.dim() != 2 or not width <= q_init.shape[1] <= MAX_DOF:
+        raise ValueError(f"q_init must be (E, n) with {width} <= n <= "
+                         f"{MAX_DOF}, got {tuple(q_init.shape)}")
+    E, n = q_init.shape
+    if tuple(target.shape) != (E, 4, 4):
+        raise ValueError(f"target must be ({E}, 4, 4), got "
+                         f"{tuple(target.shape)}")
+    if not 0 <= n_active <= min(MAX_ACTIVE, n):
+        raise ValueError(f"n_active must lie in [0, {min(MAX_ACTIVE, n)}], "
+                         f"got {n_active}")
+    if q_init.device.type != "cuda":
+        raise ValueError(f"the IK kernel runs on a CUDA device, got "
+                         f"{q_init.device}")
+
+
+def ik_solve(table, q_init, target, n_active: int, width: int, iters: int,
+             damping: float, step_scale: float, pos_tol: float,
+             rot_tol: float) -> torch.Tensor:
+    """The solve of ``make_ik_fn`` in one launch of the kernel
+    (``csrc/ik_solve.cu``) on the current stream: a fresh (E, n) output;
+    the inputs are only read."""
+    check_ik_inputs(table, q_init, target, n_active, width)
+    q_out = torch.empty_like(q_init)
+    ext.load().ik_solve(table, q_init, target, int(n_active), int(iters),
+                        float(damping), float(step_scale), float(pos_tol),
+                        float(rot_tol), q_out)
+    ext.LAUNCHES["ik_solve"] += 1
+    count("ik_launches")
+    return q_out
+
+
 def make_ik_fn(chain: KinematicChain, eef_link, n_active: int | None = None,
                iters: int = 32, damping: float = 1e-4,
                step_scale: float = 1.0, pos_tol: float = 0.01,
@@ -198,10 +279,9 @@ def make_ik_fn(chain: KinematicChain, eef_link, n_active: int | None = None,
     """Build ``solve(q_init (E, n), target (E, 4, 4)) -> qpos (E, n)``.
 
     On a CUDA tensor the solve (the Gauss-Newton iterations and the
-    verify-and-fallback) runs as one CUDA graph, captured once per input
-    shape (``utils/graph.py``) and bitwise the eager solve; on a CPU tensor
-    it runs eagerly. The returned function keeps the eager solve as
-    ``.eager`` and the graphs as ``.graph``."""
+    verify-and-fallback) is one launch of the IK kernel over the path's
+    packed table, bitwise the eager solve; on a CPU tensor it runs
+    eagerly. The returned function keeps the eager solve as ``.eager``."""
     if isinstance(eef_link, str):
         eef_link = chain.link_index(eef_link)
     n_active = chain.n_dof if n_active is None else n_active
@@ -230,16 +310,23 @@ def make_ik_fn(chain: KinematicChain, eef_link, n_active: int | None = None,
         ok = (pos_diff <= pos_tol) & (rot_diff <= rot_tol)
         return torch.where(ok[:, None], q, q_init)
 
-    graph = Graphed(solve)
+    packed = pack_chain(chain, eef_link)
+    width = int(packed[:, 1].max()) + 1
+    tables = {}           # device -> the packed table there, made once
 
     @spanned("IK")
     def solver(q_init: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        if q_init.device.type == "cuda":
-            return graph(q_init, target)
-        return solve(q_init, target)
+        if q_init.device.type != "cuda":
+            return solve(q_init, target)
+        table = tables.get(q_init.device)
+        if table is None:
+            table = tables[q_init.device] = torch.as_tensor(
+                packed, device=q_init.device)
+        return ik_solve(table, q_init.to(torch.float32).contiguous(),
+                        target.to(torch.float32).contiguous(), n_active,
+                        width, iters, damping, step_scale, pos_tol, rot_tol)
 
     solver.eager = solve
-    solver.graph = graph
     return solver
 
 

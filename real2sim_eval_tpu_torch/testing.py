@@ -189,6 +189,67 @@ def _splat_params(pts, colors, scale=0.004, opacity=4.0):
     }
 
 
+def write_rail_pusher_urdf(path) -> Path:
+    """Write a second arm for the kinematics tests: the built-in arm on a
+    prismatic rail (the first dof, along a rotated x) with a tilted mount,
+    and a fixed pusher tip 12 cm past link7 in place of the gripper. Its
+    path from the root to ``pusher_tip`` holds a prismatic joint and fixed
+    links whose origins are no identities, which the built-in arm's path
+    lacks."""
+    text = Path(BUILTIN_URDF).read_text()
+    head, rest = text.split('  <joint name="world_joint"', 1)
+    rest = rest.split("</joint>", 1)[1]
+    arm = rest.split('  <link name="link_eef"/>', 1)[0]
+    rail = (
+        '  <link name="rail"/>\n'
+        '  <joint name="rail_joint" type="prismatic">\n'
+        '    <parent link="world"/><child link="rail"/>\n'
+        '    <origin rpy="0 0 0.2" xyz="0.05 -0.02 0"/>\n'
+        '    <axis xyz="1 0 0"/>\n'
+        '    <limit effort="50" lower="-0.5" upper="0.5" velocity="1.0"/>\n'
+        '  </joint>\n'
+        '  <joint name="world_joint" type="fixed">\n'
+        '    <parent link="rail"/><child link="link_base"/>\n'
+        '    <origin rpy="0.02 0 0.1" xyz="0 0 0.03"/>\n'
+        '  </joint>')
+    tip = (
+        '  <link name="pusher_tip"/>\n'
+        '  <joint name="pusher_joint" type="fixed">\n'
+        '    <origin rpy="0.1 0 0" xyz="0 0 0.12"/>\n'
+        '    <parent link="link7"/><child link="pusher_tip"/>\n'
+        '  </joint>\n</robot>\n')
+    path = Path(path)
+    path.write_text(head + rail + arm + tip)
+    return path
+
+
+def ik_problems(chain, eef: int, width: int, lanes: int, seed: int,
+                device="cpu"):
+    """``lanes`` IK problems for ``make_ik_fn(chain, eef, n_active=7)``:
+    (q_init (lanes, width), target (lanes, 4, 4)) float32 on ``device``.
+    q_init is the canonical arm pose (on link1's joint and the six after)
+    moved by up to 0.8 rad a joint within the limits; each target is the
+    FK of q_init moved by 0.003, 0.02, 0.2 or 1 rad a joint (a quarter of
+    the lanes each, interleaved), and every eighth target is moved 0.5 m
+    out of reach, so that the solve falls back to q_init."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = chain.n_dof
+    first = int(chain.dof_index[chain.link_index("link1")])
+    q0 = np.zeros((lanes, n))
+    q0[:, first:first + 7] = CANONICAL_ARM_QPOS
+    q0 = np.clip(q0 + rng.uniform(-0.8, 0.8, q0.shape), chain.lower,
+                 chain.upper)
+    scale = np.array([0.003, 0.02, 0.2, 1.0])[np.arange(lanes) % 4]
+    goal = q0 + rng.normal(size=q0.shape) * scale[:, None]
+    target = chain.fk_link(torch.as_tensor(goal, dtype=torch.float32,
+                                           device=device), eef).clone()
+    target[7::8, :3, 3] += 0.5
+    return (torch.as_tensor(q0[:, :width], dtype=torch.float32,
+                            device=device), target)
+
+
 def make_synthetic_scene(root, rope_pts=None, ik_urdf=None, seed=0,
                          n_table=400,
                          table_extent=TABLE_EXTENT,

@@ -549,8 +549,8 @@ def _slow_steps(record: dict, walls: dict, counts: dict) -> list:
         lines.append(
             f"slow step {st}: wall {walls[st]:.2f} ms, gc "
             f"{c.get('gc_collections', 0):.0f} ({c.get('gc_ms', 0.0):.2f} "
-            f"ms), syncs {c.get('syncs', 0):.0f}, graph captures "
-            f"{c.get('graph_captures', 0):.0f}")
+            f"ms), syncs {c.get('syncs', 0):.0f}, IK launches "
+            f"{c.get('ik_launches', 0):.0f}")
         for label in labels:
             h, d = per[st].get(label, (0.0, None))
             lines.append(
@@ -566,7 +566,7 @@ def report(record: dict) -> list:
     window's,
     each span's host and device ms beside that span's median over all
     steps, with the step's garbage collections, synchronising calls and
-    graph captures; then the live contact slots and self-collision rows
+    IK kernel launches; then the live contact slots and self-collision rows
     a lane-step, the anchors' round trips, and the build's spans."""
     import numpy as np
 

@@ -4,6 +4,7 @@ articulation and the grid randomization, on the CPU."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from real2sim_eval_tpu.kinematics.chain import KinematicChain as JChain
@@ -218,9 +219,17 @@ def test_chain_device_constants_are_built_once():
         assert torch.equal(a, b)
 
 
-def test_ik_solver_on_the_cpu_is_the_eager_solve():
+def test_ik_solver_on_the_cpu_is_the_eager_solve(monkeypatch):
     """On a CPU tensor the solver ``make_ik_fn`` returns runs the eager
-    solve (no graph is captured), bitwise, fallback rows included."""
+    solve, bitwise, fallback rows included, and never touches the kernel
+    extension."""
+    from real2sim_eval_tpu_torch import ext
+
+    def no_build():
+        raise AssertionError("the CPU solve loaded the extension")
+
+    monkeypatch.setattr(ext, "load", no_build)
+    launches = dict(ext.LAUNCHES)
     jc, tc = chains()
     eef = tc.link_index("link7")
     rng = np.random.default_rng(6)
@@ -231,43 +240,123 @@ def test_ik_solver_on_the_cpu_is_the_eager_solve():
     got = solver(q, target)
     assert torch.equal(got, solver.eager(q, target))
     assert torch.equal(got[4], q[4]) and not torch.equal(got[0], q[0])
-    assert solver.graph.captures == 0 and solver.graph.replays == 0
+    assert ext.LAUNCHES == launches
 
 
-def test_graph_replays_copy_inputs_and_return_clones(monkeypatch):
-    """The graph helper's contract with a stand-in for the CUDA capture
-    (a replay that runs the function on the static inputs into the static
-    output): each call copies its inputs into the static inputs, one
-    capture per input signature, and the returned tensor is a clone, so a
-    result kept across calls is not overwritten by the next replay. A
-    helper that skipped the copy would return the first call's result for
-    the second input."""
-    from real2sim_eval_tpu_torch.utils import graph as graph_mod
+def packed_fk(table: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(..., n) -> (..., 4, 4): the pose at the end of a packed path, from
+    its table alone, by the operations of ``chain.fk_link``."""
+    from real2sim_eval_tpu_torch.kinematics.chain import (_prismatic,
+                                                          _rot_about_axis)
 
-    def fake_record(fn, static_in):
-        out = fn(*static_in)
+    pose = None
+    for row in table:
+        local = row[5:21].reshape(4, 4)
+        jt = int(row[0])
+        if jt:
+            axis, v = row[2:5], q[..., int(row[1])]
+            local = local @ (_rot_about_axis(axis, v) if jt == 1
+                             else _prismatic(axis, v))
+        pose = local if pose is None else pose @ local
+    return pose.expand(q.shape[:-1] + (4, 4))
 
-        def replay():
-            out.copy_(fn(*static_in))
-        return replay, out
 
-    monkeypatch.setattr(graph_mod, "_record", fake_record)
+def rail_chain(tmp_path):
+    from real2sim_eval_tpu_torch.testing import write_rail_pusher_urdf
 
-    def fn(a, b):
-        return a * 2.0 + b
+    return TChain.from_urdf_file(write_rail_pusher_urdf(
+        tmp_path / "rail.urdf"))
 
-    g = graph_mod.Graphed(fn)
-    rng = np.random.default_rng(7)
-    x1, y1, x2, y2 = (T(rng.normal(size=(4, 3))) for _ in range(4))
-    r1 = g(x1, y1)
-    keep = r1.clone()
-    r2 = g(x2, y2)
-    assert torch.equal(r1, keep) and torch.equal(r1, fn(x1, y1))
-    assert torch.equal(r2, fn(x2, y2))
-    static_in, _, out = g._graphs[graph_mod.signature((x1, y1))]
-    assert r2.data_ptr() != out.data_ptr()
-    assert torch.equal(static_in[0], x2) and static_in[0].data_ptr() != \
-        x2.data_ptr()
-    r3 = g(x1[:2], y1[:2])                    # a new shape: its own graph
-    assert torch.equal(r3, fn(x1[:2], y1[:2]))
-    assert (g.captures, g.replays) == (2, 3)
+
+@pytest.mark.parametrize("arm,width", [("builtin", 7), ("builtin", 9),
+                                       ("rail", 8)])
+def test_packed_table_gives_fk_link(tmp_path, arm, width):
+    """The table the IK kernel reads (``pack_chain``: the path root ->
+    eef, a row a link), read back in plain PyTorch (``packed_fk`` here), gives
+    bitwise ``chain.fk_link`` on the built-in arm (the evaluator's 7-wide
+    q and the full 9) and on the rail arm with its pusher tip (a
+    prismatic joint and fixed links that are no identities on the path);
+    each row holds the link's joint type, dof, axis and origin."""
+    from real2sim_eval_tpu_torch.kinematics.ik import chain_path, pack_chain
+
+    chain = chains()[1] if arm == "builtin" else rail_chain(tmp_path)
+    eef = chain.link_index("link7" if arm == "builtin" else "pusher_tip")
+    table = pack_chain(chain, eef)
+    path = chain_path(chain, eef)
+    assert table.shape == (len(path), 24) and table.dtype == np.float32
+    for row, i in zip(table, path):
+        assert row[0] == chain.joint_type[i] and row[1] == chain.dof_index[i]
+        np.testing.assert_array_equal(row[2:5], chain.axes[i].astype(
+            np.float32))
+        np.testing.assert_array_equal(row[5:21], chain.origins[i].astype(
+            np.float32).ravel())
+    assert (table[:, 21:] == 0).all()
+    rng = np.random.default_rng(8)
+    q = T(rng.uniform(-1.5, 1.5, (6, width)))
+    got = packed_fk(torch.as_tensor(table), q)
+    assert torch.equal(got, chain.fk_link(q, eef))
+
+
+def ik_wrapper_inputs(case):
+    """Inputs of ``ik_solve`` right but for ``case``, on the CPU (where the
+    kernel cannot run: a right set raises for its device alone)."""
+    from real2sim_eval_tpu_torch.kinematics.ik import pack_chain
+
+    tc = chains()[1]
+    table = torch.as_tensor(pack_chain(tc, tc.link_index("link7")))
+    q = torch.zeros(4, 7)
+    target = torch.eye(4).expand(4, 4, 4).contiguous()
+    n_active = 7
+    if case == "q_dtype":
+        q = q.double()
+    elif case == "target_dtype":
+        target = target.half()
+    elif case == "table_width":
+        table = table[:, :20].contiguous()
+    elif case == "long_path":
+        table = table.repeat(4, 1)
+    elif case == "q_narrower_than_the_path":
+        q = torch.zeros(4, 6)
+    elif case == "target_lanes":
+        target = target[:3]
+    elif case == "target_rank":
+        target = target[:, :3].contiguous()
+    elif case == "n_active":
+        n_active = 8
+    elif case == "q_strided":
+        q = torch.zeros(7, 4).t()
+    elif case == "target_strided":
+        target = torch.eye(4).expand(4, 4, 4)
+    elif case == "device_mix":
+        table = table.to("meta")
+    return table, q, target, n_active
+
+
+@pytest.mark.parametrize("case,message", [
+    ("q_dtype", "q_init must be float32"),
+    ("target_dtype", "target must be float32"),
+    ("table_width", "table must be"),
+    ("long_path", "table must be"),
+    ("q_narrower_than_the_path", "q_init must be"),
+    ("target_lanes", "target must be"),
+    ("target_rank", "target must be"),
+    ("n_active", "n_active must lie"),
+    ("q_strided", "q_init must be contiguous"),
+    ("target_strided", "target must be contiguous"),
+    ("device_mix", "table is on meta"),
+    ("on_the_cpu", "runs on a CUDA device"),
+])
+def test_ik_kernel_wrapper_checks_its_inputs(monkeypatch, case, message):
+    """The kernel reads its inputs unchecked, so ``ik_solve`` raises on a
+    wrong dtype, shape, stride or device before anything is built or
+    launched."""
+    from real2sim_eval_tpu_torch import ext
+    from real2sim_eval_tpu_torch.kinematics.ik import ik_solve
+
+    def no_build():
+        raise AssertionError("checked after the build")
+
+    monkeypatch.setattr(ext, "load", no_build)
+    table, q, target, n_active = ik_wrapper_inputs(case)
+    with pytest.raises(ValueError, match=message):
+        ik_solve(table, q, target, n_active, 7, 32, 1e-4, 1.0, 0.01, 0.01)

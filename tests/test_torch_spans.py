@@ -354,7 +354,8 @@ def test_report_on_a_written_record():
             span_row("render: other", -1, st, [b + 2.1, b + 2.5],
                      [b + 3.0, b + w - 0.5], st)]
         anchors.append(b + w)
-        counts += [[st, "env_steps", 64.0], [st, "contact_slots", 640.0]]
+        counts += [[st, "env_steps", 64.0], [st, "contact_slots", 640.0],
+                   [st, "ik_launches", 2.0]]
     counts += [[13, "gc_collections", 1.0], [13, "gc_ms", 4.5],
                [7, "capped_env_steps", 3.0]]
     rows.append(span_row("reset", -1, -1, [-900.0, -400.0]))
@@ -366,8 +367,8 @@ def test_report_on_a_written_record():
     assert lines[0] == "stamped steps 20: wall ms p50 5.00 p90 6.30"
     assert [line.split(":")[0] for line in lines
             if line.startswith("slow")] == ["slow step 7", "slow step 13"]
-    assert ("slow step 13: wall 9.00 ms, gc 1 (4.50 ms), syncs 0, graph "
-            "captures 0") in text
+    assert ("slow step 13: wall 9.00 ms, gc 1 (4.50 ms), syncs 0, IK "
+            "launches 2") in text
     assert "  IK: host 0.20 (median 0.20) device 1.00 (median 1.00)" in text
     assert ("  render: other: host 0.40 (median 0.40) device 5.50 "
             "(median 1.50)") in text
