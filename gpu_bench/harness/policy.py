@@ -13,8 +13,12 @@ are planned from the object's initial pose and particles and the seed,
 not from what the object does. The policy implements the policy
 protocol (``inference(obs) -> (n, 8)``: xyz, quaternion wxyz, gripper in
 policy space, 1 closed) and reads nothing the program computed: each
-lane's object pose is worked out in numpy from the run config the
-benchmark wrote (``grid_pose``), its particles from the benchmark's own
+lane's object pose and the pose of each attached mesh are worked out in
+numpy from the run config the benchmark wrote, by the scene's own grid
+walk (``grid_pose``, ``mesh_pose``: a one-to-one grid pairs ``xy[i]``
+with ``theta[i]``; a mesh with a grid takes its cell from the episode
+index left over by the object's grid and the meshes before it), once,
+when the policy is built; its particles come from the benchmark's own
 arrays.
 
 The cycle (``traffic["cycle"]``):
@@ -24,9 +28,10 @@ The cycle (``traffic["cycle"]``):
   object's extent along its long axis, on the axis through its particles'
   centroid (0.5: the centroid);
 - ``heading``: the cycle's direction in the table plane, ``{"toward":
-  "mesh:<name>", "stop_short": m}`` (toward a mesh of the config, no
-  heading term of turn 0 bringing a waypoint within ``stop_short`` of
-  it) or ``{"angle": <expr>}`` (degrees);
+  "mesh:<name>", "stop_short": m}`` (toward a mesh of the config where
+  the lane's episode puts it, no heading term of turn 0 bringing a
+  waypoint within ``stop_short`` of it) or ``{"angle": <expr>}``
+  (degrees);
 - ``yaw``: ``{"follow": "object", "offset": <expr>}`` (the eef's x axis
   along the object's long axis at the anchor) or ``{"fixed": deg}``;
 - ``phases``: each ``{"steps": n, "grip": 0 or 1, "xy": [[turn, length],
@@ -49,22 +54,57 @@ from .scene import rng_of
 DOWN = np.diag([1.0, -1.0, -1.0])      # the eef pointing at the table
 
 
-def grid_pose(cfg: dict, episode: int) -> np.ndarray:
-    """Episode's object pose (4, 4), world frame, worked out from the
-    config alone: grid cell ``episode % (xy x theta)``, the cell's offset
-    added to the pose's translation and its yaw applied before its
-    rotation (as the port's grid randomization does)."""
-    g = cfg["gs"]["object"]["grid_randomization"]
-    pose = np.array(cfg["gs"]["object"]["pose"], np.float64).reshape(4, 4)
-    cell = episode % (len(g["xy"]) * len(g["theta"]))
-    rx, ry = g["xy"][cell // len(g["theta"])]
-    a = np.deg2rad(g["theta"][cell % len(g["theta"])])
-    p = pose.copy()
+def _cells(grid: dict) -> int:
+    """A grid's cells: one per ``xy`` entry where it is one-to-one, else
+    one per pair of an ``xy`` entry and a ``theta`` entry."""
+    if grid.get("one_to_one", False):
+        return len(grid["xy"])
+    return len(grid["xy"]) * len(grid["theta"])
+
+
+def _cell_pose(pose, grid: dict, cell: int) -> np.ndarray:
+    """``pose`` (16 numbers) moved to ``cell`` of ``grid`` as the scene's
+    grid randomization moves it: the cell's offset added to the
+    translation and its yaw applied before the rotation; one-to-one,
+    cell i is ``xy[i]`` with ``theta[i]``, else ``xy[cell // n_theta]``
+    with ``theta[cell % n_theta]``."""
+    if grid.get("one_to_one", False):
+        (rx, ry), deg = grid["xy"][cell], grid["theta"][cell]
+    else:
+        rx, ry = grid["xy"][cell // len(grid["theta"])]
+        deg = grid["theta"][cell % len(grid["theta"])]
+    a = deg * np.pi / 180.0
+    p = np.array(pose, np.float64).reshape(4, 4)
     p[:3, 3] += [rx, ry, 0.0]
     p[:3, :3] = np.array([[np.cos(a), -np.sin(a), 0.0],
                           [np.sin(a), np.cos(a), 0.0],
                           [0.0, 0.0, 1.0]]) @ p[:3, :3]
     return p
+
+
+def grid_pose(cfg: dict, episode: int) -> np.ndarray:
+    """Episode's object pose (4, 4), world frame, worked out from the
+    config alone: the object grid's cell ``episode % cells``."""
+    g = cfg["gs"]["object"]["grid_randomization"]
+    return _cell_pose(cfg["gs"]["object"]["pose"], g, episode % _cells(g))
+
+
+def mesh_pose(cfg: dict, name: str, episode: int) -> np.ndarray:
+    """Episode's pose (4, 4) of the attached mesh ``name``, world frame,
+    by the scene's walk: ``m = episode // (the object grid's cells)``;
+    each mesh with a grid, in config order, takes cell ``m % its cells``
+    and leaves ``m // its cells`` to the next. A mesh without a grid
+    keeps its base pose."""
+    m = episode // _cells(cfg["gs"]["object"]["grid_randomization"])
+    for mesh in cfg["gs"]["meshes"]:
+        g = mesh.get("grid_randomization")
+        if mesh["name"] == name:
+            if not g:
+                return np.array(mesh["pose"], np.float64).reshape(4, 4)
+            return _cell_pose(mesh["pose"], g, m % _cells(g))
+        if g:
+            m //= _cells(g)
+    raise KeyError(f"no mesh {name!r} in the config")
 
 
 def reset_eef_xyz() -> np.ndarray:
@@ -123,8 +163,9 @@ class CyclePolicy:
         for ep in episode_ids:
             P = grid_pose(cfg, int(ep))
             self.world.append(pts @ P[:3, :3].T + P[:3, 3])
-        self.meshes = {m["name"]: np.array(m["pose"], np.float64)
-                       .reshape(4, 4)[:2, 3] for m in cfg["gs"]["meshes"]}
+        self.meshes = [{m["name"]: mesh_pose(cfg, m["name"], int(ep))[:2, 3]
+                        for m in cfg["gs"]["meshes"]}
+                       for ep in episode_ids]   # per lane: name -> xy
         self.init = reset_eef_xyz()
         self.cmd = np.tile(self.init, (self.lanes, 1))
         self.t = 0
@@ -158,7 +199,7 @@ class CyclePolicy:
         h = cy["heading"]
         short = None
         if "toward" in h:
-            goal = self.meshes[h["toward"].split(":", 1)[1]]
+            goal = self.meshes[lane][h["toward"].split(":", 1)[1]]
             heading = np.rad2deg(np.arctan2(*(goal - anchor)[::-1]))
             short = (goal, float(h.get("stop_short", 0.0)))
         else:

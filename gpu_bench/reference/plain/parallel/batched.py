@@ -94,7 +94,7 @@ class BatchedAssets:
     bones0: torch.Tensor           # (n_bones, 3) rest sim particles
     table: dict                    # scene scan splats
     mask: torch.Tensor             # (N_table,) i32 link id per scan splat
-    mesh_params: dict              # name -> attached-mesh splats
+    mesh_params: dict              # name -> per-lane attached-mesh splats
     qpos0: torch.Tensor            # (7,)
     cameras: list                  # [(w, h, K (3, 3), w2c (4, 4))]
     wrist_cameras: list            # [(w, h, K (3, 3), eef2c (4, 4))]
@@ -186,7 +186,7 @@ class BatchedEvaluator:
         camera and, where the cull may run, the KD-ordered static blocks."""
         a, rc = self.assets, self.raster_config
         n_static = (int(self._static_rows.shape[0])
-                    + sum(int(pm["means3D"].shape[0])
+                    + sum(int(pm["means3D"].shape[1])
                           for pm in a.mesh_params.values()))
         self.incremental = (not self.per_env and bool(self._fixed_cams)
                             and n_static > 0 and rc.incremental != "off"
@@ -373,9 +373,12 @@ class BatchedEvaluator:
         parts = {"means3D": [xyz], "rotations": [quats]}
         for k in ("shs", "opacities", "scales"):
             parts[k] = [shared(a.obj[k])]
+        # each lane's meshes at that lane's episode pose
         for pm in a.mesh_params.values():
             for k in parts:
-                parts[k].append(shared(pm[k]))
+                v = pm[k]
+                parts[k].append(v[:, :, :1] if (dc_only and v.dim() == 4)
+                                else v)
         parts["means3D"].append(t_means)
         parts["rotations"].append(t_quats)
         for k in ("shs", "opacities", "scales"):
@@ -412,9 +415,18 @@ class BatchedEvaluator:
 
     def static_scene(self) -> dict:
         """The gaussians that never move, (N_s, ...) tensors in [meshes...,
-        mask-0 scan rows] order."""
+        mask-0 scan rows] order. It is one scene for every lane, so it
+        raises where the lanes' mesh splats differ (meshes randomized per
+        episode): that build renders on the full pipeline
+        (``incremental="off"``) or per env, which read each lane's own."""
         a = self.assets
-        parts = {k: [pm[k] for pm in a.mesh_params.values()]
+        for name, pm in a.mesh_params.items():
+            if not all(torch.equal(pm[k], pm[k][:1].expand_as(pm[k]))
+                       for k in SPLAT_KEYS):
+                raise ValueError(
+                    f"mesh {name!r} differs between lanes: one static "
+                    "scene cannot hold it; build with incremental='off'")
+        parts = {k: [pm[k][0] for pm in a.mesh_params.values()]
                  for k in SPLAT_KEYS}
         if self._static_rows.shape[0]:
             for k in SPLAT_KEYS:
