@@ -254,6 +254,10 @@ K3_GATES = {
     "profile_no-selfcollision": {"x": 5e-6, "v": 5e-3, "com": 5e-7},
     "profile_no-contact": {"x": 5e-6, "v": 5e-3, "com": 5e-7},
     "profile_springs-only": {"x": 5e-6, "v": 5e-3, "com": 5e-7},
+    # the sloth cell's tables (k3_sloth_case): a 3,400-particle plush with
+    # volumetric springs falling onto its container's floor against a wall,
+    # self-collision and contact at the full caps
+    "sloth": {"x": 2e-4, "v": 5e-1, "com": 1e-5},
 }
 # the loop's control step is cut to its first substeps: its ends' collision
 # is chaotic, and by 40 substeps rounding alone flips a hit in the plain
@@ -268,7 +272,8 @@ K3_MUST_CATCH = {"flagship": ("no_op", "no_springs"),
                  "profile_full": ("no_op", "no_springs"),
                  "profile_no-selfcollision": ("no_op", "no_springs"),
                  "profile_no-contact": ("no_op", "no_springs"),
-                 "profile_springs-only": ("no_op", "no_springs")}
+                 "profile_springs-only": ("no_op", "no_springs"),
+                 "sloth": ("no_op", "no_springs")}
 # profile_physics' physics ablation at the tool's defaults
 PROFILE_BATCH, PROFILE_PARTICLES, PROFILE_SUBSTEPS = 8, 1000, 667
 # the drift test of K3's two-CTA cluster (check_k3_drift): control steps
@@ -811,6 +816,13 @@ def k3_rounding_gap(opts, tab, state, plain) -> dict:
     """Max |x| and |v| between the plain version in f32 and in f64 on the
     same inputs: how far rounding alone moves this case (a contact-heavy
     step is chaotic, and a kernel may be as far from the plain version)."""
+    p64 = plain_f64(opts, tab, state)
+    return {"x": float((plain.x - p64.x).abs().max()),
+            "v": float((plain.v - p64.v).abs().max())}
+
+
+def plain_f64(opts, tab, state):
+    """K3's plain version in float64 on the same inputs."""
     import torch
 
     from real2sim_eval_tpu_torch.physics import spring_mass as sm
@@ -826,9 +838,7 @@ def k3_rounding_gap(opts, tab, state, plain) -> dict:
         f.name: f64(getattr(tab, f.name)) for f in dataclasses.fields(tab)})
     st64 = dataclasses.replace(state, x=f64(state.x), v=f64(state.v),
                                finger_forces=f64(state.finger_forces))
-    p64 = sm.run_substeps_plain(opts, tab64, st64)
-    return {"x": float((plain.x - p64.x).abs().max()),
-            "v": float((plain.v - p64.v).abs().max())}
+    return sm.run_substeps_plain(opts, tab64, st64)
 
 
 def same_step(a, b) -> bool:
@@ -892,6 +902,171 @@ def check_k3(case: str, opts, tab, state, **extra) -> dict:
              f"passing {missed}: {out}")
     if fused_step.K3_RANKS == 2 and not cluster_same:
         fail(f"K3 {case}: the cluster launch is not bitwise one CTA per env")
+    return out
+
+
+def k3_sloth_case(B: int = 8, seed: int = 2**31 + 22):
+    """The sloth cell's K3 problem at its full size: the benchmark's
+    ``sloth`` scene written from ``seed`` (a blocky plush of ~3,400
+    particles, springs within 0.02 m, at most 30; an open 18 x 24 x 9 cm
+    container on its per-episode pose), built for B lanes; each lane's
+    plush moved into its own container, 1 mm above the floor and 2 mm
+    clear of a long wall, falling at 0.2 m/s, the gripper held open above
+    it. Self-collision (256 rows) and contact (512 slots) run at the full
+    caps. Returns (opts, tables, state, extra)."""
+    import torch
+
+    from gpu_bench.harness import cell as cell_mod
+    from gpu_bench.harness import main as bench_main
+    from real2sim_eval_tpu_torch.config import load_config
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.physics import fused_step
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+
+    cell = cell_mod.find("sloth.pack64")
+    with tempfile.TemporaryDirectory() as root:
+        bench_main.write_scene(cell, seed, Path(root))
+        cfg = load_config(Path(root) / "cfg", "run")
+        ev = BatchedEvaluator(cfg, list(range(0, 5 * B, 5)), device=DEVICE,
+                              raster_config=render_off())
+    st = ev.state
+    box = cell.spec["box"]
+    x = st.sm.x
+    lo, hi = x.amin(1), x.amax(1)
+    pose = st.static_pose[:, 0]                   # (B, 4, 4) model frame
+    # each lane's plush against its container's +x wall, on its floor
+    inner_x = box["size"][0] / 2 - box["wall"]
+    target = pose[:, :3, 3] + (pose[:, :3, :3] @ torch.tensor(
+        [inner_x - 0.002, 0.0, box["wall"] + 0.001], device=DEVICE)[:, None]
+        )[..., 0]
+    shift = target - torch.stack([hi[:, 0], (lo[:, 1] + hi[:, 1]) / 2,
+                                  lo[:, 2]], -1)
+    moved = x + shift[:, None]
+    vel = torch.zeros_like(moved)
+    vel[..., 2] = -0.2
+    st = st.replace(sm=dataclasses.replace(st.sm, x=moved, v=vel))
+    rot = torch.tensor(np.diag([1.0, -1.0, -1.0]).reshape(-1),
+                       dtype=torch.float32, device=DEVICE)
+    act = torch.cat([st.grippers[:, :3], rot.expand(B, 9),
+                     torch.zeros((B, 1), device=DEVICE)], dim=1)
+    ctrl, _, _, colliders = ev._env_pre(st, act)
+    a = ev.assets
+    tab = sm.freeze(a.params, a.opts, colliders, st.sm, ctrl, st.rest_x)
+    N = int(moved.shape[1])
+    M, PM = int(tab.sc_sel.shape[1]), int(tab.cand.shape[1])
+    shared = 4 * (15 * N + 3 * M + 4 * PM)
+    return a.opts, tab, st.sm, {
+        "springs": int(a.params.springs.shape[0]),
+        "spring_records": int((tab.nbr_k != 0).sum()),
+        "self_rows": M, "contact_slots": PM,
+        "shared_bytes": shared,
+        "shared_share_of_ceiling": shared / fused_step.MAX_SHARED_BYTES,
+        "mesh_groups": ev.n_mesh_groups}
+
+
+def check_k3_sloth():
+    """K3 at the sloth cell's tables against its plain version."""
+    opts, tab, state, extra = k3_sloth_case()
+    out = check_k3("sloth", opts, tab, state, **extra)
+    if out["contact_candidates_in_reach"] == 0:
+        fail(f"K3 sloth: no particle within reach of the container: {out}")
+
+
+def sloth_witness(steps: int = 120, total: int = 300,
+                  seed: int = 2**31 + 23):
+    """Whether the sloth cell's positions can be held, and how far its
+    traffic packs the plush: the benchmark's sloth scene and ``pack``
+    policy over 64 lanes, 30 hold steps and ``total`` policy steps (one
+    cycle). After ``steps`` of them the next control step's K3 inputs are
+    captured and run by K3, by its plain version in f32 and in f64: per
+    lane, the mean particle distance (m) between each pair. Where K3 and
+    plain f32 lie alike far from f64, a gap between them is the problem's
+    rounding (rope's case, PERF.md §2), not K3. Every step each lane's
+    particles inside its box's OBB scaled by 1.05 are counted (upstream's
+    success rule, ``success.is_sloth_success``): the lanes that reach
+    3,050, and the largest count of each lane."""
+    import torch
+
+    from gpu_bench.harness import cell as cell_mod
+    from gpu_bench.harness import main as bench_main
+    from gpu_bench.harness import policy as bench_policy
+    from real2sim_eval_tpu_torch.config import load_config
+    from real2sim_eval_tpu_torch.experiments.eval_policy_batched import (
+        actions_from_policy, hold_actions)
+    from real2sim_eval_tpu_torch.experiments.utils import success
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.physics import fused_step
+    from real2sim_eval_tpu_torch.physics import spring_mass as sm
+
+    cell = cell_mod.find("sloth.pack64")
+    ids = list(range(int(cell.traffic["lanes"])))
+    with tempfile.TemporaryDirectory() as root:
+        scene = bench_main.write_scene(cell, seed, Path(root))
+        ev = BatchedEvaluator(load_config(Path(root) / "cfg", "run"), ids,
+                              device=DEVICE)
+    pol = bench_policy.make(cell.traffic, scene["cfg"], cell.spec,
+                            scene["particles"], ids, seed)
+    hold = torch.as_tensor(hold_actions(ev.state.grippers.cpu().numpy()),
+                           dtype=torch.float32, device=DEVICE)
+    for _ in range(30):
+        ev.step(hold, do_velocity_control=False)
+    obbs = [success.minimal_obb(np.asarray(d["physics"]["static_meshes"][0]
+                                           ["vertices"]))
+            for d in ev.get_state_dumps()]
+    best = np.zeros(len(ids), np.int64)
+
+    def act():
+        return torch.as_tensor(actions_from_policy(pol.inference(None),
+                                                   False),
+                               dtype=torch.float32, device=DEVICE)
+
+    def tally():
+        for i, x in enumerate(ev.particle_states()):
+            best[i] = max(best[i], success.points_in_obb(
+                x, *obbs[i], scale=success.SLOTH_OBB_SCALE))
+
+    out = None
+    for k in range(total):
+        if k != steps:
+            ev.step(act())
+            tally()
+            continue
+        seen, undo = capture(fused_step, "spring_mass_step")
+        try:
+            ev.step(act())
+        finally:
+            undo()
+        tally()
+        opts, tab, state = seen["args"][:3]
+        kern = fused_step.spring_mass_step(opts, tab, state)
+        plain = sm.run_substeps_plain(opts, tab, state)
+        p64 = plain_f64(opts, tab, state)
+
+        def lane_mean(a, b):
+            return (a.double() - b.double()).norm(dim=-1).mean(1)
+
+        k_64, p_64, k_p = (lane_mean(kern.x, p64.x),
+                           lane_mean(plain.x, p64.x),
+                           lane_mean(kern.x, plain.x))
+        worst = torch.argsort(k_p, descending=True)[:6].tolist()
+        out = {"phase": "sloth_witness", "steps": steps, "seed": seed,
+               "x_mean_gap_k3_plain_max": float(k_p.max()),
+               "x_mean_gap_k3_f64_max": float(k_64.max()),
+               "x_mean_gap_plain_f64_max": float(p_64.max()),
+               "x_gap_k3_plain_max": float((kern.x - plain.x).abs().max()),
+               "worst_lanes": [{"lane": i, "k3_plain": float(k_p[i]),
+                                "k3_f64": float(k_64[i]),
+                                "plain_f64": float(p_64[i]),
+                                "telemetry": tab.telemetry[i].tolist(),
+                                "grasped": bool(ev.state.grasp.grasped[i])}
+                               for i in worst]}
+        del kern, plain, p64
+    out.update({"policy_steps": total,
+                "particles": int(ev.state.sm.x.shape[1]),
+                "lanes_in_box": int((best >= success.SLOTH_POINTS_REQUIRED
+                                     ).sum()),
+                "in_box_max_per_lane": best.tolist()})
+    emit(out)
     return out
 
 
@@ -2055,7 +2230,7 @@ def cfg_build(root: Path):
     a = ev.assets
     parts = {"object": int(a.obj["means3D"].shape[0]),
              "table": int(a.table["means3D"].shape[0]),
-             **{k: int(v["means3D"].shape[0])
+             **{k: int(v["means3D"].shape[-2])
                 for k, v in a.mesh_params.items()}}
     rel = ev.state.rel_pose.cpu().numpy().astype(np.float64)
     rel_err = float(np.abs(rel - grid_rel_poses(loaded, B_FLAGSHIP)).max())
@@ -4122,6 +4297,16 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count(), "encoders": encoders})
 
+    if sys.argv[1:] == ["sloth"]:      # the K3 gate at the sloth's tables
+        t0 = time.perf_counter()
+        ptxas = start_ptxas()
+        ext.load()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0})
+        report_ptxas(ptxas)
+        check_k3_sloth()
+        sloth_witness()
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name}})
+        return 0
     if sys.argv[1:] == ["ik"]:         # the IK gate alone
         t0 = time.perf_counter()
         ext.load()
@@ -4148,6 +4333,7 @@ def main() -> int:
     check_k3_grasp()
     check_k3_loop()
     check_k3_pusher()
+    check_k3_sloth()
     check_reference()
     # every host-timed phase first, the device profiles last
     ev, actions, launches, flagship, ik = run_flagship()

@@ -14,7 +14,9 @@ holds what a JAX ``BatchedEvaluator`` sets up in ``__init__`` and
   finger_centroids, global_translation, force_threshold, fps, use_shs,
   do_velocity_control, qpos0, bones0, mask
   obj/<attr>, table/<attr>, mesh_params/<name>/<attr>
-      attr in means3D, rotations, shs, scales, opacities
+      attr in means3D, rotations, shs, scales, opacities; a mesh's
+      leaves are shared (N_m, ...) or per lane (B, N_m, ...): each lane's
+      splats at its own episode's mesh pose (a config build's)
   cameras/<i>/{w,h,K,w2c}, wrist_cameras/<i>/{w,h,K,eef2c}
   chain/{link_names,parent,joint_type,origins,axes,dof_index,n_dof,
          topo_order,lower,upper}

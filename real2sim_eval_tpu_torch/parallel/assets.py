@@ -4,10 +4,11 @@ them.
 Counterpart of the JAX ``BatchedEvaluator.__init__`` reset loop and
 ``_snapshot_scene``: one ``BaseEnv`` (``envs.make(cfg.env_name, ...)``) is
 reset once per episode with ``skip_obs``; the shared arrays (springs and
-neighbour tables, SDF grids, splats, LBS bones, the articulation tables,
-cameras, the kinematic chain) come from episode 0, the per-env ones
-(object pose relative to episode 0, static mesh poses, rest positions,
-gripper rows, randomization draws) from every episode. The result is the
+neighbour tables, SDF grids, object and scan splats, LBS bones, the
+articulation tables, cameras, the kinematic chain) come from episode 0,
+the per-env ones (object pose relative to episode 0, static mesh poses,
+the attached meshes' splats at those poses, rest positions, gripper rows,
+randomization draws) from every episode. The result is the
 flat numpy tree of ``convert.assets_from_numpy``, so a config build and
 the tests' bridge from a JAX evaluator meet in one format.
 """
@@ -30,9 +31,6 @@ def _snapshot_scene(tree: dict, rend, cfg) -> None:
         tree[f"obj/{k}"] = np.asarray(v)
     for k, v in rend.table_rendervar.items():
         tree[f"table/{k}"] = np.asarray(v)
-    for name, pm in rend.params_meshes.items():
-        for k, v in pm.items():
-            tree[f"mesh_params/{name}/{k}"] = np.asarray(v)
     tree["bones0"] = to_numpy(rend.state["x"])
     tree["mask"] = np.asarray(rend.total_mask_full)
     art = rend.articulation
@@ -93,8 +91,8 @@ def assets_tree(cfg, episode_ids, raster_config: RasterConfig | None = None,
                     raster_config=raster_config or RasterConfig(),
                     device=device)
     tree: dict = {}
-    rest_x, static_poses, rel_poses, grippers, rvars, dumps = \
-        [], [], [], [], [], []
+    rest_x, static_poses, rel_poses, grippers, rvars, dumps, meshes = \
+        [], [], [], [], [], [], []
     pose0_inv = None
     for i, ep in enumerate(episode_ids):
         with host_span("reset"):
@@ -113,6 +111,9 @@ def assets_tree(cfg, episode_ids, raster_config: RasterConfig | None = None,
         rel_poses.append((obj_pose @ pose0_inv).astype(np.float32))
         grippers.append(rend.grippers[0].copy())
         rvars.append(list(rend.random_variables))
+        # each episode's mesh splats, posed at that episode's mesh pose
+        meshes.append({name: {k: np.asarray(v) for k, v in pm.items()}
+                       for name, pm in rend.params_meshes.items()})
 
     B = len(rest_x)
     n = rest_x[0].shape[0]
@@ -132,6 +133,10 @@ def assets_tree(cfg, episode_ids, raster_config: RasterConfig | None = None,
         "state/rest_x": np.stack(rest_x),
         "state/step": 0,
     })
+    for name, pm in meshes[0].items():
+        for k in pm:
+            tree[f"mesh_params/{name}/{k}"] = np.stack([m[name][k]
+                                                       for m in meshes])
     return tree, rvars, dumps
 
 

@@ -49,14 +49,15 @@ from ..physics.spring_mass import (MeshColliderSet, PhysicsOptions,
 from ..renderer import lbs as lbs_mod
 from ..renderer import precull as pc
 from ..renderer.camera import Camera, setup_camera, wrist_w2c
-from ..renderer.incremental import build_static_raster, render_incremental
+from ..renderer.incremental import (build_static_raster, group_statics,
+                                    render_incremental)
 from ..renderer.incremental_fine import (build_static_raster_fine,
                                          render_incremental_fine)
 from ..renderer.raster import RasterConfig, rasterize, rasterize_batch
 from ..renderer.scene import RobotArticulation
 from ..utils import transforms as tf
 from ..utils.device import resolve_device
-from ..utils.profiling import spanned
+from ..utils.profiling import count, host_span, span, spanned
 
 
 SPLAT_KEYS = ("means3D", "scales", "rotations", "opacities", "shs")
@@ -95,7 +96,9 @@ class BatchedAssets:
     bones0: torch.Tensor           # (n_bones, 3) rest sim particles
     table: dict                    # scene scan splats
     mask: torch.Tensor             # (N_table,) i32 link id per scan splat
-    mesh_params: dict              # name -> attached-mesh splats
+    # name -> attached-mesh splats: per lane (B, N_m, ...), each lane's
+    # at its own episode's mesh pose (a config build), or shared (N_m, ...)
+    mesh_params: dict
     qpos0: torch.Tensor            # (7,)
     cameras: list                  # [(w, h, K (3, 3), w2c (4, 4))]
     wrist_cameras: list            # [(w, h, K (3, 3), eef2c (4, 4))]
@@ -109,6 +112,32 @@ class BatchedAssets:
     # world-posed static meshes (the success calculators' schema)
     random_variables: list | None = None
     static_mesh_dumps: list | None = None
+
+
+def mesh_groups(mesh_params: dict, batch: int):
+    """The lanes grouped by their attached meshes: lanes whose splats of
+    every mesh are equal bit for bit (the same mesh poses) share a group,
+    numbered in order of their first lane. A mesh's leaves are per lane
+    (B, N_m, ...), or shared (N_m, ...) by every lane. Returns (per group,
+    its first lane's {name: {attr: (N_m, ...)}}, each lane's group (B,)
+    i64 on the leaves' device)."""
+    lanes = {name for name, pm in mesh_params.items()
+             if pm["means3D"].dim() == 3}
+    dev = next((pm["means3D"].device for pm in mesh_params.values()),
+               torch.device("cpu"))
+    first, lane_group = {}, [0] * batch
+    if lanes:
+        key = torch.cat([v.reshape(batch, -1).contiguous().view(torch.int32)
+                         for name in sorted(lanes)
+                         for v in mesh_params[name].values()],
+                        dim=1).cpu().numpy()
+        lane_group = [first.setdefault(key[b].tobytes(), len(first))
+                      for b in range(batch)]
+    reps = [lane_group.index(g) for g in range(max(lane_group) + 1)]
+    groups = [{name: {k: v[lane] if name in lanes else v
+                      for k, v in pm.items()}
+               for name, pm in mesh_params.items()} for lane in reps]
+    return groups, torch.as_tensor(lane_group, dtype=torch.int64, device=dev)
 
 
 class BatchedEvaluator:
@@ -175,6 +204,12 @@ class BatchedEvaluator:
                                            device=self.device)
         self._static_rows = torch.as_tensor(np.where(mask <= 0)[0],
                                             device=self.device)
+        # the lanes grouped by their attached meshes' poses: one static
+        # raster and one set of wrist pre-cull blocks per group
+        self._mesh_groups, self.lane_group = mesh_groups(
+            a.mesh_params, len(self.episode_ids))
+        self.n_mesh_groups = len(self._mesh_groups)
+        count("mesh_groups", self.n_mesh_groups)
         self.render_stats = {}
         self.wrist_cull = None
         self.incremental = False
@@ -185,17 +220,18 @@ class BatchedEvaluator:
         (batched.py:358-362) and the wrist pre-cull (batched.py:449-512),
         and the one-time builds they need: the static frame of every fixed
         camera and, where the cull may run, the KD-ordered static blocks."""
-        a, rc = self.assets, self.raster_config
+        rc = self.raster_config
         n_static = (int(self._static_rows.shape[0])
                     + sum(int(pm["means3D"].shape[0])
-                          for pm in a.mesh_params.values()))
+                          for pm in self._mesh_groups[0].values()))
         self.incremental = (not self.per_env and bool(self._fixed_cams)
                             and n_static > 0 and rc.incremental != "off"
                             and (rc.incremental == "on"
                                  or self.device.type == "cuda"))
         if not self.incremental:
             return
-        scene = self.static_scene()
+        n_groups = self.n_mesh_groups
+        scenes = [self.static_scene(g) for g in range(n_groups)]
         fine = rc.kernel == "fine"
         build = build_static_raster_fine if fine else build_static_raster
         self._render_fixed = (render_incremental_fine if fine
@@ -206,14 +242,23 @@ class BatchedEvaluator:
         if rc.wrist_kernel not in ("inherit", rc.kernel):
             self._wrist_config = dataclasses.replace(rc,
                                                      kernel=rc.wrist_kernel)
-        self._cam_static = [(cam, build(cam, w2c, scene, self.sh_deg), w2c)
-                            for cam, w2c in self._fixed_cams]
+        # one raster per camera and mesh group; with more than one group
+        # they are stacked once, and each lane reads its group's
+        with host_span("static rasters (mesh groups)"):
+            rasters = [[build(cam, w2c, sc, self.sh_deg) for sc in scenes]
+                       for cam, w2c in self._fixed_cams]
+            self._fixed_kw = ({} if n_groups == 1 else {
+                "groups": group_statics(rasters, self.lane_group)})
+        self._cam_static = [(cam, per_group[0], w2c) for (cam, w2c), per_group
+                            in zip(self._fixed_cams, rasters)]
         if self.sh_deg == 0:
-            scene = dict(scene, shs=scene["shs"][:, :1])
-        self._static = scene
+            scenes = [dict(sc, shs=sc["shs"][:, :1]) for sc in scenes]
+        self._static = (scenes[0] if n_groups == 1 else
+                        {k: torch.stack([sc[k] for sc in scenes])
+                         for k in SPLAT_KEYS})
         self._wrist_flags = (False, False)
         if (not self._wrist_cams or rc.wrist_precull == "off"
-                or scene["means3D"].shape[0] < 16 * pc.BLOCK):
+                or scenes[0]["means3D"].shape[0] < 16 * pc.BLOCK):
             return
 
         st0 = self.state
@@ -227,14 +272,35 @@ class BatchedEvaluator:
 
         init = poses((0.0, 0.0, 0.0))
         sweep = [cw for off in WRIST_SWEEP for cw in poses(off)]
-        st_w = pc.pad_static_scene(pc.spatial_sort_scene(scene))
-        centers, radii = pc.block_bounds(st_w["means3D"], st_w["scales"])
-        self._cull_static = (st_w, centers, radii)
-        # a capacity near the whole scene wins nothing (the JAX rule)
-        cap = max(pc.plan_static_cull(init, centers, radii),
-                  pc.plan_static_cull(init + sweep, centers, radii,
-                                      margin=1.15))
-        g = int(centers.shape[0])
+        cap = 0
+        culls = []
+        with host_span("static rasters (mesh groups)"):
+            for grp, sc in enumerate(scenes):
+                st_w = pc.pad_static_scene(pc.spatial_sort_scene(sc))
+                centers, radii = pc.block_bounds(st_w["means3D"],
+                                                 st_w["scales"])
+                culls.append((st_w, centers, radii))
+                # each group's blocks against its own lanes' poses
+                own = (slice(None) if n_groups == 1 else
+                       torch.nonzero(self.lane_group == grp)[:, 0])
+                # a capacity near the whole scene wins nothing (the JAX
+                # rule)
+                cap = max(cap, pc.plan_static_cull(
+                    [(c, w[own]) for c, w in init], centers, radii),
+                    pc.plan_static_cull([(c, w[own]) for c, w in init + sweep],
+                                        centers, radii, margin=1.15))
+        # with more than one group: the groups' blocks stacked, and each
+        # lane's own group's block bounds (B, G, ...)
+        self._cull_rows = {}
+        self._cull_static = culls[0]
+        if n_groups > 1:
+            st_ws, cs, rs = zip(*culls)
+            self._cull_static = ({k: torch.stack([t[k] for t in st_ws])
+                                  for k in pc.SCENE_KEYS},
+                                 torch.stack(cs)[self.lane_group],
+                                 torch.stack(rs)[self.lane_group])
+            self._cull_rows = {"rows": self.lane_group}
+        g = int(culls[0][1].shape[0])
         static_on = rc.wrist_precull == "on" or cap < int(0.9 * g)
         dyn0 = self.compose_dyn(st0, dc_only=True)[0]
         dyn_cap = g_dyn = None
@@ -377,9 +443,16 @@ class BatchedEvaluator:
         parts = {"means3D": [xyz], "rotations": [quats]}
         for k in ("shs", "opacities", "scales"):
             parts[k] = [shared(a.obj[k])]
-        for pm in a.mesh_params.values():
+        # each lane's meshes at its own episode's pose (with one group,
+        # the group's splats spread over the lanes)
+        for name, pm in a.mesh_params.items():
             for k in parts:
-                parts[k].append(shared(pm[k]))
+                if self.n_mesh_groups == 1 or pm["means3D"].dim() == 2:
+                    parts[k].append(shared(self._mesh_groups[0][name][k]))
+                else:
+                    v = pm[k]
+                    parts[k].append(v[:, :, :1] if (dc_only and v.dim() == 4)
+                                    else v)
         parts["means3D"].append(t_means)
         parts["rotations"].append(t_quats)
         for k in ("shs", "opacities", "scales"):
@@ -415,11 +488,12 @@ class BatchedEvaluator:
         return ({k: torch.cat(v, dim=1) if len(v) > 1 else v[0]
                  for k, v in parts.items()}, qpos7)
 
-    def static_scene(self) -> dict:
-        """The gaussians that never move, (N_s, ...) tensors in [meshes...,
-        mask-0 scan rows] order."""
+    def static_scene(self, group: int = 0) -> dict:
+        """The gaussians that never move in the lanes of mesh group
+        ``group``, (N_s, ...) tensors in [meshes..., mask-0 scan rows]
+        order."""
         a = self.assets
-        parts = {k: [pm[k] for pm in a.mesh_params.values()]
+        parts = {k: [pm[k] for pm in self._mesh_groups[group].values()]
                  for k in SPLAT_KEYS}
         if self._static_rows.shape[0]:
             for k in SPLAT_KEYS:
@@ -447,7 +521,7 @@ class BatchedEvaluator:
             dyn, qpos_new = self.compose_dyn(st, dc_only=self.sh_deg == 0)
             rgb, depth, tele = self._render_fixed(
                 self._cam_static, dyn, self.sh_deg, config=self.raster_config,
-                stats=self.render_stats)
+                stats=self.render_stats, **self._fixed_kw)
             wims, wdepths, wdrops = self.render_wrist(st, dyn,
                                                       *self._wrist_flags)
             self.render_telemetry = (tele, wdrops)
@@ -543,8 +617,15 @@ class BatchedEvaluator:
                     torch.zeros((0, B), dtype=torch.int32,
                                 device=self.device))
         if not static_cull:
-            scenes = {k: torch.cat([dyn[k], self._static[k][None].expand(
-                (B,) + self._static[k].shape)], dim=1) for k in SPLAT_KEYS}
+            if self.n_mesh_groups == 1:
+                static = {k: v[None].expand((B,) + v.shape)
+                          for k, v in self._static.items()}
+            else:
+                with span("mesh groups", traced=True):
+                    static = {k: v[self.lane_group]
+                              for k, v in self._static.items()}
+            scenes = {k: torch.cat([dyn[k], static[k]], dim=1)
+                      for k in SPLAT_KEYS}
             rgb, depth, drops = rasterize_batch(
                 cams, scenes, self.sh_deg, config=self._wrist_config,
                 return_drops=True, device=self.device)
@@ -554,7 +635,7 @@ class BatchedEvaluator:
         outs, kept_s, kept_d = [], [], []
         for cam, w2c_b in cams:
             culled, n_s = pc.cull_static_blocks(cam, w2c_b, st_w, centers,
-                                                radii)
+                                                radii, **self._cull_rows)
             kept_s.append(n_s)
             dyn_c = dyn
             if dyn_cull:

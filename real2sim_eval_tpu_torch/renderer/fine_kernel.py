@@ -88,14 +88,16 @@ def composite_fine_plain(pairs, fine_starts, fine_ends, n_sup_x: int,
 
 def rasterize_fine_sparse(pairs, inst_ids, tile_ids, starts, ends,
                           rgb_cache, depth_cache, n_sup_x: int, n_sup_y: int,
-                          bg=(0.0, 0.0, 0.0)):
+                          bg=(0.0, 0.0, 0.0), cache_index=None):
     """Re-composite the dirty fine tiles of a list on top of cached frames.
 
     pairs: (10, P) f32 merged pair table; inst_ids / tile_ids / starts /
     ends: (n_dirty,) i32, entry k re-composites fine tile tile_ids[k] of
     instance inst_ids[k] from pairs[starts[k]:ends[k]]; rgb_cache
     (..., 3, Hp, Wp) and depth_cache (..., Hp, Wp): the cached frames of
-    the I instances (leading dims flatten to I; broadcast views are fine).
+    the I instances (leading dims flatten to I; broadcast views are fine),
+    or with ``cache_index`` a table of frames as ``tile_kernel.
+    rasterize_tiles_sparse`` takes it.
     Returns new (rgb (I, 3, Hp, Wp), depth (I, Hp, Wp)): a copy of the
     caches with the listed fine tiles re-composited, every other pixel
     kept."""
@@ -109,8 +111,9 @@ def rasterize_fine_sparse(pairs, inst_ids, tile_ids, starts, ends,
     if pairs.device.type != "cuda":
         return composite_fine_sparse_plain(pairs, inst_ids, tile_ids, starts,
                                            ends, rgb_cache, depth_cache,
-                                           n_sup_x, n_sup_y, bg)
-    rgb, depth = copy_frames(rgb_cache, depth_cache)
+                                           n_sup_x, n_sup_y, bg,
+                                           cache_index=cache_index)
+    rgb, depth = copy_frames(rgb_cache, depth_cache, cache_index)
     if inst_ids.shape[0]:
         ext.load().fine_sparse(pairs.contiguous(), inst_ids.contiguous(),
                                tile_ids.contiguous(), starts.contiguous(),
@@ -123,9 +126,11 @@ def rasterize_fine_sparse(pairs, inst_ids, tile_ids, starts, ends,
 
 def composite_fine_sparse_plain(pairs, inst_ids, tile_ids, starts, ends,
                                 rgb_cache, depth_cache, n_sup_x: int,
-                                n_sup_y: int, bg=(0.0, 0.0, 0.0)):
+                                n_sup_y: int, bg=(0.0, 0.0, 0.0),
+                                cache_index=None):
     """Plain PyTorch version of K5: K4's plain blend over the listed fine
     tiles only, written into a copy of the cached frames."""
     return composite_sparse_plain(pairs, inst_ids, tile_ids, starts, ends,
                                   rgb_cache, depth_cache, n_sup_x * GROUPS,
-                                  n_sup_y, bg, tile_w=FINE_W)
+                                  n_sup_y, bg, tile_w=FINE_W,
+                                  cache_index=cache_index)

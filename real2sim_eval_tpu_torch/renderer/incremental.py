@@ -205,18 +205,58 @@ def dirty_tiles(tile_starts, tile_ends):
     return inst.to(torch.int32), tile.to(torch.int32)
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupedStatics:
+    """The fixed cameras' static rasters where the envs' static scenes
+    differ (attached meshes posed per episode), stacked once at build:
+    raster r = camera * G + mesh group."""
+
+    pairs: torch.Tensor        # (10, P_s) every raster's pair table
+    starts: torch.Tensor       # (n_cams * G, n_tiles) i32 into pairs
+    ends: torch.Tensor         # (n_cams * G, n_tiles) i32
+    rgb_cache: torch.Tensor    # (n_cams * G, 3, Hp, Wp)
+    depth_cache: torch.Tensor  # (n_cams * G, Hp, Wp)
+    rows: torch.Tensor         # (n_cams * B,) i64 instance i's raster
+
+
+def group_statics(rasters: list, groups) -> GroupedStatics:
+    """Stack ``rasters``, per fixed camera a list of one static raster
+    (``StaticRaster`` or ``StaticRasterFine``) per mesh group, for envs
+    whose group is ``groups`` (B,) i64."""
+    G = len(rasters[0])
+    flat = [r for per_cam in rasters for r in per_cam]   # camera-major
+    offsets = [0]
+    for r in flat[:-1]:
+        offsets.append(offsets[-1] + r.pairs.shape[1])
+    cams = torch.arange(len(rasters), device=groups.device)
+    return GroupedStatics(
+        pairs=torch.cat([r.pairs for r in flat], dim=1),
+        starts=torch.stack([r.starts + o for r, o in zip(flat, offsets)]),
+        ends=torch.stack([r.ends + o for r, o in zip(flat, offsets)]),
+        rgb_cache=torch.stack([r.rgb_cache for r in flat]),
+        depth_cache=torch.stack([r.depth_cache for r in flat]),
+        rows=(cams[:, None] * G + groups[None]).reshape(-1))
+
+
 def dirty_segments(cam_static_w2c: list, dyn_scenes: dict,
-                   sh_degree: int) -> dict:
+                   sh_degree: int, groups: GroupedStatics | None = None
+                   ) -> dict:
     """What the dirty tiles of one incremental step blend over: the
     dynamic binning (``bin_dynamic``), the exact dirty list (``dirty_tiles``)
     and, per dirty entry, its dynamic segment and its camera's truncated
     static segment, plus the cached frames broadcast over the envs.
 
+    ``groups``: the envs' static scenes differ; every dirty entry takes
+    its env's group's static segment from the stacked rasters, which share
+    each camera's tiles with its entry in ``cam_static_w2c``.
+
     Returns dict with data_s / data_d ((10, P) f32 tables of all cameras),
     inst / tile ((n_dirty,) i32), s_starts / s_ends / d_starts / d_ends
     ((n_dirty,) i32 ranges into data_s / data_d), rgb_cache (n_cams, B, 3,
-    Hp, Wp) and depth_cache (n_cams, B, Hp, Wp) views, drops (I,) i32 and
-    the frame size h, w, n_cams, B."""
+    Hp, Wp) and depth_cache (n_cams, B, Hp, Wp) views (with ``groups``:
+    its (n_cams * G, ...) tables and ``cache_index`` (I,) i64 into them,
+    else ``cache_index`` None), drops (I,) i32 and the frame size h, w,
+    n_cams, B."""
     if not cam_static_w2c:
         raise ValueError("need at least one fixed camera")
     cam0, _, _ = cam_static_w2c[0]
@@ -231,6 +271,16 @@ def dirty_segments(cam_static_w2c: list, dyn_scenes: dict,
         cam_static_w2c, dyn_scenes, sh_degree)
     inst, tile = dirty_tiles(d_tile_starts, d_tile_ends)
     il, tl = inst.long(), tile.long()
+    common = {"data_d": data_d, "inst": inst, "tile": tile, "drops": drops,
+              "h": h, "w": w, "n_cams": n_cams, "B": B}
+    if groups is not None:
+        with span("mesh groups", traced=True):
+            row = groups.rows[il]
+            s_starts, s_ends = groups.starts[row, tl], groups.ends[row, tl]
+        return dict(common, data_s=groups.pairs, s_starts=s_starts,
+                    s_ends=s_ends, d_starts=d_tile_starts[il, tl],
+                    d_ends=d_tile_ends[il, tl], rgb_cache=groups.rgb_cache,
+                    depth_cache=groups.depth_cache, cache_index=groups.rows)
 
     # frozen static tables of all cameras, one table with per-camera offsets
     statics = [st for _, st, _ in cam_static_w2c]
@@ -243,16 +293,13 @@ def dirty_segments(cam_static_w2c: list, dyn_scenes: dict,
     cam_of = il // B
     rgb_cache = torch.stack([st.rgb_cache for st in statics])[:, None]
     depth_cache = torch.stack([st.depth_cache for st in statics])[:, None]
-    return {
-        "data_s": torch.cat([st.pairs for st in statics], dim=1),
-        "data_d": data_d, "inst": inst, "tile": tile,
-        "s_starts": s_tile_starts[cam_of, tl],
-        "s_ends": s_tile_ends[cam_of, tl],
-        "d_starts": d_tile_starts[il, tl], "d_ends": d_tile_ends[il, tl],
-        "rgb_cache": rgb_cache.expand((n_cams, B) + rgb_cache.shape[2:]),
-        "depth_cache": depth_cache.expand((n_cams, B)
-                                          + depth_cache.shape[2:]),
-        "drops": drops, "h": h, "w": w, "n_cams": n_cams, "B": B}
+    return dict(
+        common, data_s=torch.cat([st.pairs for st in statics], dim=1),
+        s_starts=s_tile_starts[cam_of, tl], s_ends=s_tile_ends[cam_of, tl],
+        d_starts=d_tile_starts[il, tl], d_ends=d_tile_ends[il, tl],
+        rgb_cache=rgb_cache.expand((n_cams, B) + rgb_cache.shape[2:]),
+        depth_cache=depth_cache.expand((n_cams, B) + depth_cache.shape[2:]),
+        cache_index=None)
 
 
 def finish_frames(rgb, depth, seg: dict, n_dirty):
@@ -272,13 +319,15 @@ def finish_frames(rgb, depth, seg: dict, n_dirty):
 
 def render_incremental(cam_static_w2c: list, dyn_scenes: dict,
                        sh_degree: int, config: RasterConfig = RasterConfig(),
-                       bg=(0.0, 0.0, 0.0), stats: dict | None = None):
+                       bg=(0.0, 0.0, 0.0), stats: dict | None = None,
+                       groups: GroupedStatics | None = None):
     """Render B envs x n fixed cameras incrementally.
 
     Args:
       cam_static_w2c: list of (Camera, StaticRaster, w2c (4, 4)) per fixed
         camera (all of one resolution); the static rasters were built with
-        the same ``bg``.
+        the same ``bg``. With ``groups`` (``group_statics``), env b
+        blends over its mesh group's static segments and cached frame.
       dyn_scenes: dict of stacked (B, N_dyn, ...) DYNAMIC gaussians only.
       config: ``merge_kernel`` picks the sort merge + K2 or K6.
       stats: if given, receives ``merged_pairs``, the pairs the dirty tiles
@@ -288,9 +337,11 @@ def render_incremental(cam_static_w2c: list, dyn_scenes: dict,
        telemetry (n_cams, B, 4) i32 [n_dirty, dropped_tiles,
        static_fill_dropped, binning_dropped])
     """
-    seg = dirty_segments(cam_static_w2c, dyn_scenes, sh_degree)
+    seg = dirty_segments(cam_static_w2c, dyn_scenes, sh_degree, groups)
     st0 = cam_static_w2c[0][1]
     ntx, nty = st0.n_tiles_x, st0.n_tiles_y
+    idx = ({} if seg["cache_index"] is None
+           else {"cache_index": seg["cache_index"]})
     bg = bg_tuple(bg)
     data_s, data_d, inst, tile = (seg[k] for k in ("data_s", "data_d",
                                                    "inst", "tile"))
@@ -301,7 +352,7 @@ def render_incremental(cam_static_w2c: list, dyn_scenes: dict,
         with span("K6 tile_sparse_merge (incl. cache copy)"):
             rgb, depth = rasterize_tiles_sparse_merge(
                 data_s, data_d, inst, tile, s_starts, s_ends, d_starts,
-                d_ends, rgb_cache, depth_cache, ntx, nty, bg)
+                d_ends, rgb_cache, depth_cache, ntx, nty, bg, **idx)
         if stats is not None:
             stats["merged_pairs"] = int((s_ends - s_starts).sum()
                                         + (d_ends - d_starts).sum())
@@ -312,7 +363,7 @@ def render_incremental(cam_static_w2c: list, dyn_scenes: dict,
         with span("K2 tile_sparse (incl. cache copy)"):
             rgb, depth = rasterize_tiles_sparse(
                 merged, inst, tile, m_starts, m_ends, rgb_cache,
-                depth_cache, ntx, nty, bg)
+                depth_cache, ntx, nty, bg, **idx)
         if stats is not None:
             stats["merged_pairs"] = int(merged.shape[1])
     n_dirty = torch.bincount(inst.long(), minlength=seg["n_cams"] * seg["B"])

@@ -82,12 +82,14 @@ def build_static_raster_fine(cam: Camera, w2c, scene: dict, sh_degree: int,
 def render_incremental_fine(cam_static_w2c: list, dyn_scenes: dict,
                             sh_degree: int,
                             config: RasterConfig = RasterConfig(),
-                            bg=(0.0, 0.0, 0.0), stats: dict | None = None):
+                            bg=(0.0, 0.0, 0.0), stats: dict | None = None,
+                            groups=None):
     """Render B envs x n fixed cameras incrementally on fine tiles.
 
     Args mirror ``incremental.render_incremental`` so the evaluator
     dispatches on the kernel family alone; ``cam_static_w2c`` carries
-    StaticRasterFine entries, and ``config`` is not read (the fine path
+    StaticRasterFine entries (``groups`` stacks one per mesh group), and
+    ``config`` is not read (the fine path
     always merges by sort). ``stats``, if given, receives ``merged_pairs``
     (the pairs the dirty fine tiles blend over) and ``dirty_fine_tiles``
     ((n_cams, B) i32).
@@ -97,9 +99,11 @@ def render_incremental_fine(cam_static_w2c: list, dyn_scenes: dict,
        static_fill_dropped, binning_dropped])
     """
     del config
-    seg = dirty_segments(cam_static_w2c, dyn_scenes, sh_degree)
+    seg = dirty_segments(cam_static_w2c, dyn_scenes, sh_degree, groups)
     st0 = cam_static_w2c[0][1]
     nsx, nsy = st0.n_super_x, st0.n_super_y
+    idx = ({} if seg["cache_index"] is None
+           else {"cache_index": seg["cache_index"]})
     inst, tile = seg["inst"], seg["tile"]
     with span("merge (sort)"):
         merged, m_starts, m_ends = merge_segments(
@@ -109,7 +113,7 @@ def render_incremental_fine(cam_static_w2c: list, dyn_scenes: dict,
     with span("K5 fine_sparse (incl. cache copy)"):
         rgb, depth = rasterize_fine_sparse(
             merged, inst, tile, m_starts, m_ends, seg["rgb_cache"],
-            seg["depth_cache"], nsx, nsy, bg)
+            seg["depth_cache"], nsx, nsy, bg, **idx)
     n_inst = seg["n_cams"] * seg["B"]
     il = inst.long()
     n_super = nsx * nsy

@@ -150,11 +150,13 @@ def visible_mask(cam: Camera, w2c, centers, radii, pad_px: float = PAD_PX):
     return ok
 
 
-def _compact(blocks: dict, ok):
+def _compact(blocks: dict, ok, rows=None):
     """Keep each env's visible blocks, ascending, padded to the largest
     visible count over the envs with opacity-0 rows.
 
-    blocks: dict of (B or 1, G, BLOCK, ...) tensors; ok (B, G).
+    blocks: dict of (B or 1, G, BLOCK, ...) tensors, or with ``rows`` (B,)
+    i64 of (R, G, BLOCK, ...) tensors of which env b reads row
+    ``rows[b]``; ok (B, G).
     Returns ((B, n_keep * BLOCK, ...) scene, visible blocks (B,) i32)."""
     B, g = ok.shape
     n_vis = ok.sum(1)
@@ -163,10 +165,11 @@ def _compact(blocks: dict, ok):
     sel = torch.sort(key, dim=1).values[:, :n_keep]
     real = sel < g
     sel = torch.clamp(sel, max=g - 1)
-    env = torch.arange(B, device=ok.device)[:, None]
+    env = (torch.arange(B, device=ok.device) if rows is None
+           else rows)[:, None]
     out = {}
     for k, v in blocks.items():
-        v = v[env if v.shape[0] > 1 else 0, sel]   # (B, n_keep, BLOCK, ...)
+        v = v[env if (v.shape[0] > 1 or rows is not None) else 0, sel]
         out[k] = v.reshape((B, n_keep * BLOCK) + v.shape[3:])
     op = out["opacities"]
     mask = real.repeat_interleave(BLOCK, dim=1)
@@ -178,7 +181,7 @@ def _compact(blocks: dict, ok):
 
 @spanned("precull static")
 def cull_static_blocks(cam: Camera, w2c_b, static_padded: dict, centers,
-                       radii, pad_px: float = PAD_PX):
+                       radii, pad_px: float = PAD_PX, rows=None):
     """Compact a shared (N, ...) static scene to the blocks visible from a
     per-env camera pose.
 
@@ -186,15 +189,24 @@ def cull_static_blocks(cam: Camera, w2c_b, static_padded: dict, centers,
       w2c_b: (B, 4, 4) world-to-camera per env.
       static_padded / centers / radii: from ``pad_static_scene`` +
         ``block_bounds``, computed once at build.
+      rows: (B,) i64 where the envs' static scenes differ (attached meshes
+        posed per episode): ``static_padded`` then holds one (R, N, ...)
+        scene per mesh group, ``centers`` / ``radii`` each env's own
+        group's blocks (B, G, 3) / (B, G), and env b keeps the blocks of
+        scene ``rows[b]``.
     Returns (culled scene dict with (B, n_keep * BLOCK, ...) leaves,
     visible blocks per env (B,) i32)."""
-    g = static_padded["means3D"].shape[0] // BLOCK
-    ok = visible_mask(cam, torch.as_tensor(w2c_b), centers[None],
-                      radii[None], pad_px)
-    blocks = {k: static_padded[k].reshape((1, g, BLOCK)
-                                          + static_padded[k].shape[1:])
+    lead = 1 if rows is None else static_padded["means3D"].shape[0]
+    per = static_padded["means3D"].shape[-2]
+    g = per // BLOCK
+    if rows is None:
+        centers, radii = centers[None], radii[None]
+    ok = visible_mask(cam, torch.as_tensor(w2c_b), centers, radii, pad_px)
+    blocks = {k: static_padded[k].reshape(
+                  (lead, g, BLOCK)
+                  + static_padded[k].shape[(1 if rows is None else 2):])
               for k in SCENE_KEYS}
-    return _compact(blocks, ok)
+    return _compact(blocks, ok, rows)
 
 
 @spanned("precull dynamic")

@@ -108,9 +108,18 @@ def longest_first(starts, ends):
 
 
 @spanned("cache copy")
-def copy_frames(rgb_cache, depth_cache):
+def copy_frames(rgb_cache, depth_cache, index=None):
     """(I, 3, Hp, Wp), (I, Hp, Wp) contiguous copies of the cached frames,
-    whose leading dims may be broadcast views (one frame per camera)."""
+    whose leading dims may be broadcast views (one frame per camera).
+    ``index`` (I,) i64: instance i copies cached frame ``index[i]`` of
+    the caches' flattened leading dims (one frame per camera and mesh
+    group), in one gather."""
+    if index is not None:
+        return (torch.index_select(
+                    rgb_cache.reshape((-1,) + rgb_cache.shape[-3:]), 0, index),
+                torch.index_select(
+                    depth_cache.reshape((-1,) + depth_cache.shape[-2:]), 0,
+                    index))
     rgb = torch.empty(rgb_cache.shape, dtype=torch.float32,
                       device=rgb_cache.device).copy_(rgb_cache)
     depth = torch.empty(depth_cache.shape, dtype=torch.float32,
@@ -458,14 +467,17 @@ def composite_backward_plain(pairs, tile_starts, tile_ends, dl_rgb,
 
 def rasterize_tiles_sparse(pairs, inst_ids, tile_ids, starts, ends,
                            rgb_cache, depth_cache, n_tiles_x: int,
-                           n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
+                           n_tiles_y: int, bg=(0.0, 0.0, 0.0),
+                           cache_index=None):
     """Re-composite the dirty tiles of a list on top of cached frames.
 
     pairs: (10, P) f32 merged pair table; inst_ids / tile_ids / starts /
     ends: (n_dirty,) i32, entry k re-composites tile tile_ids[k] of
     instance inst_ids[k] from pairs[starts[k]:ends[k]]; rgb_cache
     (..., 3, Hp, Wp) and depth_cache (..., Hp, Wp): the cached frames of
-    the I instances (leading dims flatten to I; broadcast views are fine).
+    the I instances (leading dims flatten to I; broadcast views are fine),
+    or with ``cache_index`` (I,) i64 a table of frames of which instance i
+    takes frame ``cache_index[i]`` (``copy_frames``).
     Returns new (rgb (I, 3, Hp, Wp), depth (I, Hp, Wp)): a copy of the
     caches with the listed tiles re-composited, every other pixel kept."""
     _check_table("pairs", pairs)
@@ -477,8 +489,9 @@ def rasterize_tiles_sparse(pairs, inst_ids, tile_ids, starts, ends,
     if pairs.device.type != "cuda":
         return composite_sparse_plain(pairs, inst_ids, tile_ids, starts,
                                       ends, rgb_cache, depth_cache,
-                                      n_tiles_x, n_tiles_y, bg)
-    rgb, depth = copy_frames(rgb_cache, depth_cache)
+                                      n_tiles_x, n_tiles_y, bg,
+                                      cache_index=cache_index)
+    rgb, depth = copy_frames(rgb_cache, depth_cache, cache_index)
     if inst_ids.shape[0]:
         ext.load().tile_sparse(pairs.contiguous(), inst_ids.contiguous(),
                                tile_ids.contiguous(), starts.contiguous(),
@@ -491,11 +504,11 @@ def rasterize_tiles_sparse(pairs, inst_ids, tile_ids, starts, ends,
 def composite_sparse_plain(pairs, inst_ids, tile_ids, starts, ends,
                            rgb_cache, depth_cache, n_tiles_x: int,
                            n_tiles_y: int, bg=(0.0, 0.0, 0.0),
-                           tile_w: int = TILE_W):
+                           tile_w: int = TILE_W, cache_index=None):
     """Plain PyTorch version of K2, and of K5 with ``tile_w`` 16 (a grid of
     n_tiles_x fine tiles): K1's blend over the listed tiles only, written
     into a copy of the cached frames."""
-    rgb, depth = copy_frames(rgb_cache, depth_cache)
+    rgb, depth = copy_frames(rgb_cache, depth_cache, cache_index)
     if not inst_ids.shape[0]:
         return rgb, depth
     Cr, Cg, Cb, T, D = _blend_tiles_plain(pairs, starts, ends, tile_ids,
@@ -558,7 +571,8 @@ def merge_segments(data_s, s_starts, s_ends, data_d, d_starts, d_ends):
 def rasterize_tiles_sparse_merge(data_s, data_d, inst_ids, tile_ids,
                                  s_starts, s_ends, d_starts, d_ends,
                                  rgb_cache, depth_cache, n_tiles_x: int,
-                                 n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
+                                 n_tiles_y: int, bg=(0.0, 0.0, 0.0),
+                                 cache_index=None):
     """As ``rasterize_tiles_sparse``, but entry k blends the merge of the
     static segment data_s[:, s_starts[k]:s_ends[k]] and the dynamic segment
     data_d[:, d_starts[k]:d_ends[k]] (both (10, P) f32 tables whose
@@ -578,8 +592,9 @@ def rasterize_tiles_sparse_merge(data_s, data_d, inst_ids, tile_ids,
     if data_s.device.type != "cuda":
         return composite_sparse_merge_plain(
             data_s, data_d, inst_ids, tile_ids, s_starts, s_ends, d_starts,
-            d_ends, rgb_cache, depth_cache, n_tiles_x, n_tiles_y, bg)
-    rgb, depth = copy_frames(rgb_cache, depth_cache)
+            d_ends, rgb_cache, depth_cache, n_tiles_x, n_tiles_y, bg,
+            cache_index=cache_index)
+    rgb, depth = copy_frames(rgb_cache, depth_cache, cache_index)
     if inst_ids.shape[0]:
         ext.load().tile_sparse_merge(
             data_s.contiguous(), data_d.contiguous(), inst_ids.contiguous(),
@@ -593,11 +608,12 @@ def rasterize_tiles_sparse_merge(data_s, data_d, inst_ids, tile_ids,
 def composite_sparse_merge_plain(data_s, data_d, inst_ids, tile_ids,
                                  s_starts, s_ends, d_starts, d_ends,
                                  rgb_cache, depth_cache, n_tiles_x: int,
-                                 n_tiles_y: int, bg=(0.0, 0.0, 0.0)):
+                                 n_tiles_y: int, bg=(0.0, 0.0, 0.0),
+                                 cache_index=None):
     """Plain PyTorch version of K6: the merged order built by
     ``merge_segments``, then K2's plain blend."""
     merged, starts, ends = merge_segments(data_s, s_starts, s_ends, data_d,
                                           d_starts, d_ends)
     return composite_sparse_plain(merged, inst_ids, tile_ids, starts, ends,
                                   rgb_cache, depth_cache, n_tiles_x,
-                                  n_tiles_y, bg)
+                                  n_tiles_y, bg, cache_index=cache_index)

@@ -428,10 +428,15 @@ class Recorder:
 RECORDER = Recorder()
 
 
-def span(label: str, new_step: bool = False):
+def span(label: str, new_step: bool = False, traced: bool = False):
     """The context of a stage: a no-op unless the recorder is on (see
-    ``Recorder``); ``new_step`` opens the next control step."""
+    ``Recorder``); ``new_step`` opens the next control step. ``traced``:
+    with the recorder off, a ``record_function`` range all the same while
+    a ``torch.profiler`` session runs, so that a caller's own trace names
+    a stage that no caller wraps from outside (``mesh groups``)."""
     if RECORDER.mode == "off":
+        if traced and torch._C._autograd._profiler_enabled():
+            return torch.profiler.record_function(label)
         return _NULL
     return RECORDER.span(label, new_step)
 

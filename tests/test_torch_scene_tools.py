@@ -692,7 +692,7 @@ def test_evaluator_rows_over_a_constructed_scene(constructed, tmp_path):
     tev.state = tev.state.replace(qpos7=torch.tensor(
         np.asarray(jev.state.qpos7)))
     ts, js = tev.compose_scenes(), jev.compose_scenes()
-    n_obj = len(rope) + sum(len(pm["means3D"])
+    n_obj = len(rope) + sum(pm["means3D"].shape[-2]
                             for pm in tev.assets.mesh_params.values())
     for k in ("means3D", "rotations"):
         t_tab = ts[k][:, n_obj:].numpy()

@@ -377,3 +377,113 @@ def test_report_on_a_written_record():
     assert ("anchors 20: round trip us p50 20.0 p90 20.0 max 60.0 (the "
             "clock's error is half)") in text
     assert "build spans reset 1x 0.50 s" in text
+
+
+# ---------------------------------------------------------------------------
+# mesh groups: attached meshes posed per episode
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def single_thread():
+    """One torch thread: the suite runs files side by side in workers."""
+    from torch_cli_scene import one_thread
+
+    with one_thread():
+        yield
+
+
+@pytest.fixture(scope="module")
+def grouped(tmp_path_factory):
+    """The tiny sloth-shaped scene of ``test_torch_mesh_groups`` (its
+    container on two cells over 4 lanes) built on the incremental branch
+    with the wrist pre-cull on, inside a ``stamps`` recording, and the
+    recording's record of the build."""
+    from test_torch_mesh_groups import BRANCHES as GB
+    from test_torch_mesh_groups import EPISODES, write_scene
+
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from torch_cli_scene import one_thread
+
+    cfg = write_scene(tmp_path_factory.mktemp("spans_groups"))
+    with one_thread(), recording("stamps") as rec:
+        ev = BatchedEvaluator(cfg, EPISODES, raster_config=GB["on"],
+                              device="cpu")
+        record = rec.read()
+    return ev, record
+
+
+def test_mesh_groups_counter_and_build_span(grouped, flagship,
+                                           single_thread):
+    """The build counts its mesh groups (2 here) under ``mesh_groups`` and
+    builds the per-group static rasters and pre-cull blocks inside host
+    spans ``static rasters (mesh groups)``; a flagship build with one mesh
+    pose counts 1."""
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+
+    ev, record = grouped
+    assert ev.n_mesh_groups == 2
+    assert profiling.step_counts(record)[-1]["mesh_groups"] == 2
+    builds = [s for s in record["spans"]
+              if s["label"] == "static rasters (mesh groups)"]
+    assert len(builds) == 2                  # fixed cameras, wrist blocks
+    assert all(s["step"] == -1 and s["device"] is None for s in builds)
+    evs, _ = flagship
+    with recording("stamps") as rec:
+        one = BatchedEvaluator(evs["sort"].assets, list(range(B)),
+                               raster_config=BRANCHES["sort"], device="cpu")
+        counts = profiling.step_counts(rec.read())
+    assert one.n_mesh_groups == 1 and counts[-1]["mesh_groups"] == 1
+
+
+def test_mesh_groups_span_only_with_groups(grouped, flagship, monkeypatch,
+                                           single_thread):
+    """``mesh groups`` opens in ``profile`` mode where the lanes hold two
+    mesh poses: inside the render (the fixed cameras' static segments),
+    and in the wrist pipeline where the wrist is not culled (each lane's
+    static scene); the culled wrist reads block bounds gathered per lane
+    at build, so it opens nothing there. With one pose it opens nowhere."""
+    from real2sim_eval_tpu_torch.parallel import BatchedEvaluator
+    from real2sim_eval_tpu_torch.renderer import RasterConfig
+
+    ev, _ = grouped
+    ranges = Ranges()
+    monkeypatch.setattr(torch.profiler, "record_function", ranges)
+    with recording("profile"):
+        ev.render()
+    assert {p for label, p in ranges.opened if label == "mesh groups"} == {
+        "render: other"}
+    unculled = BatchedEvaluator(ev.assets, ev.episode_ids, device="cpu",
+                                raster_config=RasterConfig(
+                                    incremental="on", wrist_precull="off"))
+    ranges.opened.clear()
+    with recording("profile"):
+        unculled.render()
+    assert {p for label, p in ranges.opened if label == "mesh groups"} == {
+        "render: other", "wrist pipeline"}
+    evs, acts = flagship
+    for one in evs.values():
+        ranges.opened.clear()
+        with recording("profile"):
+            one.step(acts)
+            one.render()
+        assert ranges.opened and all(label != "mesh groups"
+                                     for label, _ in ranges.opened)
+
+
+def test_mesh_groups_span_under_a_profiler(grouped, flagship,
+                                           single_thread):
+    """With the recorder off, ``mesh groups`` still names its operators in
+    a ``torch.profiler`` session's trace (a benchmark's traced run), where
+    there are groups; with one group, and with no profiler, nothing opens."""
+    ev, _ = grouped
+    assert profiling.RECORDER.mode == "off"
+    assert profiling.span("mesh groups", traced=True) is profiling.span("IK")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        ev.render()
+    assert "mesh groups" in {e.name for e in prof.events()}
+    evs, _ = flagship
+    with torch.profiler.profile(activities=acts) as prof:
+        evs["sort"].render()
+    assert "mesh groups" not in {e.name for e in prof.events()}
